@@ -7,7 +7,8 @@ Phases, each printed as it passes; any failure exits non-zero:
 
 1. card: a CUDA device of compute capability 9.0, its name and power limit
    from nvidia-smi; TF32 off for the plain versions;
-2. build: nvcc builds the fused ViT block kernel from the checkout;
+2. build: nvcc builds both kernel libraries from the checkout, in parallel
+   (the fused ViT block K1, flash attention K2);
 3. kernel: the fused block against its plain PyTorch version at the served
    shape (B=2, 785 tokens padded to 896, d 384, 6 heads), unmasked and
    masked, and at the other head widths it is built for; then both timed
@@ -18,19 +19,35 @@ Phases, each printed as it passes; any failure exits non-zero:
    forward, the kernel's launch count (12 per forward), agreement with the
    same forward through the plain version, B=1 latency and B=8 img/s;
 5. requests: three ``/predict`` requests through the web app with the
-   port's service, masks decoded at the input size.
+   port's service, masks decoded at the input size;
+6. K2: the flash attention forward (unmasked and masked) and backward
+   (dq, dk, dv) against their plain versions at the train shape (B 8,
+   6 heads, 785 tokens, head dim 64) and at head dims 32 and 128; forward
+   and backward timed against the plain versions with CUDA events;
+7. train step: the live config at full width with seeded weights, one
+   step through the kernels and one from the same weights and batch
+   through the plain versions: loss, grad norm and update agreement, 12
+   K2 launches each way per step, step time and img/s both ways, and the
+   device's idle share over a profiled step;
+8. Trainer: ``python -m sod_tpu_torch.cli.train``'s ``main`` on a
+   64-image synthetic DUTS directory (RLE pseudo masks, yaml) for 2
+   epochs, ``latest_model.pt``, then ``--resume`` for a third; then a
+   learning check (scripts/learning_check.py's synthetic task, 300 steps,
+   lr 2e-5, warmup steps/5, monotone poly): eval IoU must exceed 0.8.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Needs no network and no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -40,6 +57,11 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
 KERNEL = {"name": "fused_vit_block", "route": "cuda",
           "source": "sod_tpu_torch/csrc/fused_block.cu",
           "replaces": "sod_tpu/ops/fused_block.py:42"}
+K2 = {"route": "cuda", "source": "sod_tpu_torch/csrc/flash_attention.cu"}
+K2_FWD = dict(K2, name="flash_attention_forward",
+              replaces="sod_tpu/ops/flash_attention.py:54")
+K2_BWD = dict(K2, name="flash_attention_backward",
+              replaces="sod_tpu/ops/flash_attention.py:145")
 # kernel vs plain version (bf16 output, unit-scale activations): two bf16
 # ulps at |x| < 8 (H100 run: max_abs 0.0156, corr 0.99999995)
 KERNEL_MAX_ABS, KERNEL_MIN_CORR = 0.0625, 0.99999
@@ -76,16 +98,66 @@ def card_check():
              f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def build_kernel():
+def build_kernels():
+    """Both libraries at once: one nvcc per source, started together."""
     from sod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("fused_block")
-    with open(_build.library_path("fused_block") + ".log") as f:
-        usage = [ln.strip() for ln in f if "Used" in ln or "spill" in ln]
-    print("\n".join(usage))
-    phase(2, f"built {KERNEL['source']} in {time.perf_counter() - t0:.1f} s "
-             f"(ptxas report above: registers, smem, spills per kernel)")
+    errors = []
+
+    def build(name):
+        try:
+            _build.load(name)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(n,))
+               for n in ("fused_block", "flash_attention")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name in ("fused_block", "flash_attention"):
+        print("\n".join(ptxas_report(_build.library_path(name) + ".log")))
+    phase(2, f"built {KERNEL['source']} and {K2['source']} in "
+             f"{time.perf_counter() - t0:.1f} s (ptxas report above: "
+             f"registers, stack and spills per kernel)")
+
+
+def ptxas_report(log_path: str):
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    name with template arguments, registers, stack and spills."""
+    import re
+
+    lines, name, frame = [], "?", ""
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                name = _kernel_name(m.group(1))
+            elif "stack frame" in ln:
+                frame = ln.strip()
+            elif "Used" in ln:
+                lines.append(f"  {name}: {ln.split(':', 1)[1].strip()}; {frame}")
+    return lines
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_kernel<64>`` from its mangled name: the length-prefixed
+    identifier ending in ``_kernel``, then the integer template arguments."""
+    import re
+
+    for i in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            start = i + digits.end()
+            ident = mangled[start:start + int(digits.group())]
+            if ident.endswith("_kernel"):
+                args = re.findall(r"L[ib](\d+)E", mangled[start:])
+                return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 def make_block(rng, d: int, n_heads: int, perturbed: bool):
@@ -358,23 +430,9 @@ class Client:
 def requests_phase(svc, cfg):
     import base64
 
-    from sod_tpu_torch.ops import fused_block as fb
-
-    try:
-        import PIL  # noqa: F401
-        import yaml  # noqa: F401
-    except ImportError as e:
-        # the host tail needs both (sod_tpu.native is reached through
-        # sod_tpu/__init__, which imports yaml); drive the model alone
-        print(f"  {e}: driving model_step for 3 requests instead of HTTP")
-        rng = np.random.default_rng(2)
-        for _ in range(3):
-            m, o = svc.model_step(rng.integers(0, 256, (cfg.eval_image_size,) * 2 + (3,),
-                                               dtype=np.uint8))
-            assert np.isfinite(o).all() and m.dtype == np.uint8
-        phase(5, "3 requests through model_step (no PIL/yaml for HTTP)")
-        return
     from PIL import Image
+
+    from sod_tpu_torch.ops import fused_block as fb
 
     from sod_tpu.serving.app import create_app
     from sod_tpu.serving.db import Database
@@ -414,20 +472,439 @@ def requests_phase(svc, cfg):
     phase(5, "3 /predict requests answered through the port's service")
 
 
+# K2 vs its plain versions at the train shape (bf16 outputs of magnitude
+# < 1): both round at the same points, so they differ by single bf16 ulp
+# flips from f32 sums taken in another order (first H100 run: max_abs
+# forward 0.00098, dq 0.00049, dk 0.00195, dv 0.00098; rel_l2 <= 1.6e-4;
+# corr >= 0.99999999)
+K2_MAX_ABS, K2_MAX_REL_L2, K2_MIN_CORR = 0.0078125, 1e-3, 0.99999
+
+
+def _k2_inputs(rng, shape):
+    import torch
+
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(rng.standard_normal(shape, np.float32) * 0.5
+                          ).to(device="cuda", dtype=torch.bfloat16)
+    mask = torch.from_numpy(rng.random((shape[0], shape[2])) > 0.3).cuda()
+    mask[:, 0] = True
+    return q, k, v, do, mask
+
+
+def k2_check():
+    """Phase 6: returns the worst forward and backward max_abs and the
+    train-shape times {name: (kernel ms, plain ms)}."""
+    import torch
+
+    from sod_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(6)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+
+    def check(name, kind, got, ref):
+        max_abs, rel_l2, corr = errors(got, ref)
+        ok = (bool(torch.isfinite(got).all()) and max_abs <= K2_MAX_ABS
+              and rel_l2 <= K2_MAX_REL_L2 and corr > K2_MIN_CORR)
+        print(f"  {name}: max_abs {max_abs:.6g} rel_l2 {rel_l2:.6g} corr "
+              f"{corr:.9f} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version ({name})")
+        worst[kind] = max(worst[kind], max_abs)
+
+    for shape in ((8, 6, 785, 64), (2, 4, 130, 32), (2, 2, 100, 128)):
+        q, k, v, do, mask = _k2_inputs(rng, shape)
+        scale = shape[-1] ** -0.5
+        tag = f"B{shape[0]} H{shape[1]} N{shape[2]} d{shape[3]}"
+        o, m, l = fa.flash_forward_cuda(q, k, v, scale)
+        om, _, _ = fa.flash_forward_cuda(q, k, v, scale, mask)
+        grads = fa.flash_backward_cuda(q, k, v, do, m, l, scale)
+        torch.cuda.synchronize()
+        check(f"{tag} forward", "fwd", o, fa.flash_forward_reference(q, k, v, scale))
+        check(f"{tag} forward masked", "fwd", om,
+              fa.flash_forward_reference(q, k, v, scale, mask))
+        for gname, got, ref in zip(("dq", "dk", "dv"), grads,
+                                   fa.flash_backward_reference(q, k, v, do, scale)):
+            check(f"{tag} backward {gname}", "bwd", got, ref)
+
+    q, k, v, do, _ = _k2_inputs(rng, (8, 6, 785, 64))
+    _, m, l = fa.flash_forward_cuda(q, k, v, 0.125)
+    pairs = {"fwd": (lambda: fa.flash_forward_cuda(q, k, v, 0.125),
+                     lambda: fa.flash_forward_reference(q, k, v, 0.125)),
+             "bwd": (lambda: fa.flash_backward_cuda(q, k, v, do, m, l, 0.125),
+                     lambda: fa.flash_backward_reference(q, k, v, do, 0.125))}
+    timings = {}
+    for name, (kern, plain) in pairs.items():
+        # in turns on one card: plain, kernel, kernel, plain
+        p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
+        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"  {name} at B=8 H=6 N=785 d=64: kernel {timings[name][0]:.4f} ms, "
+              f"plain {timings[name][1]:.4f} ms per call", flush=True)
+    phase(6, f"K2 forward and backward match their plain versions (max_abs "
+             f"<= {K2_MAX_ABS}, rel_l2 <= {K2_MAX_REL_L2}, corr > {K2_MIN_CORR})")
+    return worst, timings
+
+
+class _PlainFlash:
+    """K2's plain versions as the autograd function of the encoder's
+    attention, on CUDA tensors (the kernels' twin for phase 7)."""
+
+    def __enter__(self):
+        import torch
+
+        from sod_tpu_torch.ops import attention
+        from sod_tpu_torch.ops import flash_attention as fa
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, scale, key_mask):
+                ctx.save_for_backward(q, k, v)
+                ctx.scale = scale
+                return fa.flash_forward_reference(q, k, v, scale, key_mask)
+
+            @staticmethod
+            def backward(ctx, do):
+                return (*fa.flash_backward_reference(*ctx.saved_tensors, do,
+                                                     ctx.scale), None, None)
+
+        self._module, self._kernel = attention, attention.flash_attention
+        attention.flash_attention = lambda q, k, v, scale, key_mask=None: \
+            Fn.apply(q, k, v, scale, key_mask)
+        return self
+
+    def __exit__(self, *exc):
+        self._module.flash_attention = self._kernel
+
+
+def synthetic_batch(rng, b: int, size: int, m: int):
+    """A collate_train-shaped uint8 batch: a bright box on a dark noisy
+    ground per image, its mask as GT row 0, the other rows padding."""
+    images = (rng.random((b, size, size, 3)) * 50).astype(np.uint8)
+    gts = np.zeros((b, m, size, size), np.uint8)
+    valid = np.zeros((b, m), bool)
+    for i in range(b):
+        h0, w0 = rng.integers(size // 11, size // 2, 2)
+        hh, ww = rng.integers(size // 4, size // 2, 2)
+        images[i, h0:h0 + hh, w0:w0 + ww] += 170
+        gts[i, 0, h0:h0 + hh, w0:w0 + ww] = 1
+        valid[i, 0] = True
+    return {"image": images, "gt_masks": gts, "gt_valid": valid,
+            "labels": rng.integers(0, 4, b).astype(np.int32)}
+
+
+def _to_cuda(batch):
+    import torch
+
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+# train step through the kernels vs through K2's plain versions, one step
+# from the same weights and batch: bf16 rounding flips inside attention
+# move the loss and grad norm slightly, and Adam's first step maps each
+# gradient element that is small against them to a sign-sized update, so
+# the update vectors correlate but do not agree elementwise (first H100
+# run: loss rel 1.0e-4, grad_norm rel 1.4e-3, update corr 0.9967)
+STEP_LOSS_RTOL, STEP_GNORM_RTOL, STEP_MIN_UPDATE_CORR = 1e-3, 1e-2, 0.99
+
+
+def train_step_check():
+    """Phase 7: returns the step times and the profile numbers."""
+    import torch
+
+    from sod_tpu.config import load_config
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    cfg = load_config(CONFIG)
+    mcfg = config_from(cfg)
+    if not mcfg.vit.use_flash:
+        raise AssertionError("the live config must train through K2")
+    sd = random_state_dict(MaskFormer(mcfg), cfg.seed)
+    runs = {}
+    for name in ("kernel", "plain"):
+        model = MaskFormer(mcfg)
+        model.load_state_dict(sd)
+        model.cuda()
+        opt = build_optimizer(cfg, model.parameters(), n_iters_per_epoch=100)
+        runs[name] = (model, make_train_step(cfg, model, opt))
+    batch = _to_cuda(synthetic_batch(np.random.default_rng(7), cfg.batch_size,
+                                     cfg.train_image_size, cfg.max_gt_masks))
+
+    before = {k: v.detach().clone() for k, v in runs["kernel"][0].state_dict().items()}
+    fa.fwd_launches = fa.bwd_launches = 0
+    mk = runs["kernel"][1](batch)
+    torch.cuda.synchronize()
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    with _PlainFlash():
+        mp = runs["plain"][1](batch)
+    torch.cuda.synchronize()
+    if fa.fwd_launches != launches[0] or fa.bwd_launches != launches[1]:
+        raise AssertionError("the plain step launched K2")
+    depth = mcfg.vit.depth
+    print(f"  K2 launches in one step: forward {launches[0]}, backward "
+          f"{launches[1]} (expected {depth} each)", flush=True)
+    if launches != (depth, depth):
+        raise AssertionError(f"expected {depth} K2 launches each way per step, "
+                             f"got {launches}")
+    mk = {k: float(v) for k, v in mk.items()}
+    mp = {k: float(v) for k, v in mp.items()}
+    print("  kernel step: " + ", ".join(f"{k} {v:.6g}" for k, v in mk.items()))
+    print("  plain step:  " + ", ".join(f"{k} {v:.6g}" for k, v in mp.items()))
+    if not all(np.isfinite(list(mk.values()))):
+        raise AssertionError("non-finite train metrics")
+    upd_k = torch.cat([(v - before[k]).flatten() for k, v in
+                       runs["kernel"][0].state_dict().items()])
+    upd_p = torch.cat([(v - before[k]).flatten() for k, v in
+                       runs["plain"][0].state_dict().items()])
+    corr = float(np.corrcoef(upd_k.cpu().numpy(), upd_p.cpu().numpy())[0, 1])
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    gnorm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / abs(mp["grad_norm"])
+    print(f"  kernel vs plain: loss rel {loss_rel:.3g}, grad_norm rel "
+          f"{gnorm_rel:.3g}, update corr {corr:.6f}, |update| max "
+          f"{float(upd_k.abs().max()):.3g}", flush=True)
+    if not (loss_rel <= STEP_LOSS_RTOL and gnorm_rel <= STEP_GNORM_RTOL
+            and corr > STEP_MIN_UPDATE_CORR):
+        raise AssertionError("the kernel step disagrees with the plain step")
+
+    def step_ms(name, n):
+        _, step = runs[name]
+        step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = {}
+    for name, n in (("kernel", 10), ("plain", 5)):
+        with (_PlainFlash() if name == "plain" else contextlib.nullcontext()):
+            times[name] = step_ms(name, n)
+    b = cfg.batch_size
+    print(f"  step at B={b}: kernel {times['kernel']:.3f} ms "
+          f"({b * 1e3 / times['kernel']:.1f} img/s), plain "
+          f"{times['plain']:.3f} ms ({b * 1e3 / times['plain']:.1f} img/s)",
+          flush=True)
+    prof = profile_steps(runs["kernel"][1], batch, 3, times["kernel"])
+    phase(7, f"train step at full width: {depth}+{depth} K2 launches, agrees "
+             f"with the plain step (loss rel <= {STEP_LOSS_RTOL}, grad_norm rel "
+             f"<= {STEP_GNORM_RTOL}, update corr > {STEP_MIN_UPDATE_CORR}), "
+             f"{times['kernel']:.1f} ms/step")
+    return times, prof
+
+
+def profile_steps(step, batch, n: int, step_ms: float):
+    """torch.profiler over ``n`` steps: device busy ms per step (sum of the
+    CUDA kernels' times; one stream, so no overlap) and the idle share
+    against ``step_ms``, the step's time with the profiler off (the
+    profiler's own host cost stretches the profiled steps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy <= 0:
+        print("  profiler: no device time recorded (idle share not measured)")
+        return {"busy_ms": None, "idle_share": None}
+    idle = 1 - busy / step_ms
+    print(f"  profile over {n} steps: device busy {busy:.3f} ms/step, idle "
+          f"share {idle:.3f} of the {step_ms:.3f} ms unprofiled step "
+          f"(profiled wall {wall:.3f} ms/step), "
+          f"{sum(e.count for e in kernels) / n:.0f} kernels/step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+              f"x{e.count // n:<5d} {e.key[:90]}")
+    groups = {"K2 (flash_*)": ("flash_",), "GEMMs": ("gemm", "xmma", "cutlass"),
+              "copies and casts": ("copy",)}
+    shares = {g: 0.0 for g in (*groups, "other")}
+    for e in kernels:
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)), "other")
+        shares[g] += e.self_device_time_total / 1e3 / n
+    print("  device time by kind: " + ", ".join(
+        f"{g} {v:.3f} ms ({v / busy:.1%})" for g, v in shares.items()))
+    return {"busy_ms": busy, "idle_share": idle}
+
+
+def write_duts(root: str, n: int, size: int) -> str:
+    """A synthetic DUTS-TR directory (JPEG images, one bright box each) and
+    its RLE pseudo-mask JSON; returns the JSON's path."""
+    from PIL import Image
+
+    from sod_tpu_torch.ops import rle
+
+    tr = os.path.join(root, "DUTS", "DUTS-TR-Image")
+    os.makedirs(tr)
+    rng = np.random.default_rng(8)
+    masks = {}
+    for i in range(n):
+        b = synthetic_batch(rng, 1, size, 1)
+        name = f"tr_{i:04d}.jpg"
+        Image.fromarray(b["image"][0]).save(os.path.join(tr, name), quality=95)
+        masks[name] = rle.encode(b["gt_masks"][0, 0])
+    fp = os.path.join(root, "pseudo_masks.json")
+    with open(fp, "w") as f:
+        json.dump(masks, f)
+    return fp
+
+
+def trainer_check():
+    """Phase 8: the CLI for 2 epochs, then --resume for a third; returns
+    the K2 launch counts of the CLI's two epochs and the phase's times."""
+    import torch
+    import yaml
+
+    from sod_tpu_torch.cli import train as cli
+    from sod_tpu_torch.ops import flash_attention as fa
+
+    times = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        with open(CONFIG) as f:
+            settings = yaml.safe_load(f)
+        pm = write_duts(root, 64, settings["train_image_size"])
+        settings.update(dir_ckpt=os.path.join(root, "ckpt"), dir_dataset=root,
+                        pseudo_masks_fp=pm, n_epochs=2)
+        fp = os.path.join(root, "train.yaml")
+        with open(fp, "w") as f:
+            yaml.safe_dump(settings, f)
+        times["dataset"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        fa.fwd_launches = fa.bwd_launches = 0
+        cli.main(["--config", fp, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = (fa.fwd_launches, fa.bwd_launches)
+        times["cli 2 epochs"] = time.perf_counter() - t0
+        steps = 2 * 64 // settings["batch_size"]
+        depth = 12                               # ViT-S blocks
+        print(f"  K2 launches over {steps} steps: forward {launches[0]}, "
+              f"backward {launches[1]}", flush=True)
+        if launches != (depth * steps, depth * steps):
+            raise AssertionError(f"expected {depth * steps} K2 launches each way")
+        ckpt_dir = os.path.join(root, "ckpt", os.listdir(os.path.join(root, "ckpt"))[0])
+        if not os.path.isfile(os.path.join(ckpt_dir, "latest_model.pt")):
+            raise AssertionError("no latest_model.pt")
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "avg_loss" in r]
+        if len(epochs) != 2 or not all(np.isfinite(r["avg_loss"]) for r in epochs):
+            raise AssertionError(f"bad epoch records: {epochs}")
+        print(f"  epoch records: " + "; ".join(
+            f"epoch {r['epoch']:.0f} loss {r['avg_loss']:.4f} iou "
+            f"{r['avg_iou']:.4f} step {r['step']}" for r in epochs), flush=True)
+
+        t0 = time.perf_counter()
+        settings["n_epochs"] = 3
+        with open(fp, "w") as f:
+            yaml.safe_dump(settings, f)
+        cli.main(["--config", fp, "--device", "cuda", "--resume"])
+        torch.cuda.synchronize()
+        times["cli --resume, epoch 3"] = time.perf_counter() - t0
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+            last = [json.loads(line) for line in f if "avg_loss" in line][-1]
+        if last["step"] != 3 * 64 // settings["batch_size"] or last["epoch"] != 3:
+            raise AssertionError(f"resume did not continue the run: {last}")
+    t0 = time.perf_counter()
+    iou0, iou1 = learning_check(300, 224)
+    times["learning check"] = time.perf_counter() - t0
+    print("  " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()), flush=True)
+    if not iou1 > 0.8:
+        raise AssertionError(f"learning check failed: eval IoU {iou1}")
+    phase(8, f"Trainer via cli.train: 2 epochs, latest_model.pt, resume; "
+             f"learning check eval IoU {iou0:.3f} -> {iou1:.3f} in 300 steps")
+    return launches
+
+
+def learning_check(steps: int, size: int):
+    """scripts/learning_check.py on the port: the live model and loss, a
+    synthetic saliency task (bright box on a dark ground, images in
+    [0, 1]), lr 2e-5 with a steps/5 warmup and a monotone poly decay."""
+    import torch
+
+    from sod_tpu.config import Config
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    cfg = Config(batch_size=8, lr=2e-5, lr_warmup_duration=1, n_epochs=10)
+    mcfg = config_from(cfg)
+    model = MaskFormer(mcfg)
+    model.load_state_dict(random_state_dict(model, 0))
+    model.cuda()
+    opt = build_optimizer(cfg, model.parameters(),
+                          n_iters_per_epoch=max(1, steps // 5),
+                          faithful_lr_cycle=False)
+    step = make_train_step(cfg, model, opt)
+
+    def batch(rng):
+        images = rng.random((8, size, size, 3)).astype(np.float32) * 0.2
+        gts = np.zeros((8, 4, size, size), np.float32)
+        valid = np.zeros((8, 4), bool)
+        for i in range(8):
+            h0, w0 = rng.integers(size // 11, size // 2, 2)
+            hh, ww = rng.integers(size // 4, size // 2, 2)
+            images[i, h0:h0 + hh, w0:w0 + ww] += 0.7
+            gts[i, 0, h0:h0 + hh, w0:w0 + ww] = 1.0
+            valid[i, 0] = True
+        return _to_cuda({"image": images.clip(0, 1), "gt_masks": gts,
+                         "gt_valid": valid,
+                         "labels": rng.integers(0, 10000, 8).astype(np.int32)})
+
+    def eval_iou(bt):
+        with torch.no_grad():
+            out = model(bt["image"].to(torch.bfloat16))
+        best = out["objectness"][:, -1, :, 0].argmax(-1)
+        pred = out["mask_pred"][:, -1][torch.arange(8), best] > 0.5   # [8, s/4, s/4]
+        gt = bt["gt_masks"][:, 0, 2::4, 2::4] > 0.5
+        inter = (pred & gt).sum((-1, -2)).float()
+        union = (pred | gt).sum((-1, -2)).float()
+        return float((inter / (union + 1e-7)).mean())
+
+    eval_batch = batch(np.random.default_rng(999))
+    iou0 = eval_iou(eval_batch)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        m = step(batch(rng))
+        if i % 50 == 0:
+            print(f"  learning check step {i}: loss {float(m['loss']):.4f} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return iou0, eval_iou(eval_batch)
+
+
 def main():
     card_check()
     import torch
 
-    build_kernel()
+    build_kernels()
     max_abs, timings = kernel_check()
     svc, cfg, launches = main_path()
     try:
         requests_phase(svc, cfg)
     finally:
         svc.close()
-    report = dict(KERNEL, launches=launches, max_abs_err=max_abs,
-                  ms=timings[1][0], plain_ms=timings[1][1])
-    print(json.dumps({"kernels": [report]}))
+    k2_worst, k2_times = k2_check()
+    train_step_check()
+    k2_launches = trainer_check()
+    report = [dict(KERNEL, launches=launches, max_abs_err=max_abs,
+                   ms=timings[1][0], plain_ms=timings[1][1]),
+              dict(K2_FWD, launches=k2_launches[0], max_abs_err=k2_worst["fwd"],
+                   ms=k2_times["fwd"][0], plain_ms=k2_times["fwd"][1]),
+              dict(K2_BWD, launches=k2_launches[1], max_abs_err=k2_worst["bwd"],
+                   ms=k2_times["bwd"][0], plain_ms=k2_times["bwd"][1])]
+    print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

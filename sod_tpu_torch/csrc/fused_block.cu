@@ -23,7 +23,8 @@
 //   (a) LN1 fused into the A-operand load of a tiled bf16 GEMM, + bias -> qkv
 //   (b) attention, one block per (q tile of 64 rows, head, image), two
 //       passes over the keys: row max and sum first, then normalised p in
-//       bf16 times v (an online softmax would round unnormalised p instead)
+//       bf16 times v (an online softmax would round unnormalised p instead);
+//       the device code is attention.cuh, shared with the K2 forward
 //   (c) proj GEMM + bias + residual -> f32 x1
 //   (d) LN2 fused into the A load of the fc1 GEMM, + bias, tanh-GELU -> bf16
 //   (e) fc2 GEMM + bias + residual -> bf16 out
@@ -35,30 +36,17 @@
 // {32, 64, 128}, 16-byte aligned contiguous tensors.  No edge masking is
 // needed under it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int THREADS = 128;          // 4 warps
+using namespace sod;   // THREADS, pads, bf16 fragments, copy16, attention_block
+
 constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int APAD = 8;               // bf16 row pad: ldm % 8 == 0, spreads banks
-constexpr int CPAD = 4;               // f32 row pad: ldm % 4 == 0
-constexpr int AQ = 64;                // attention q rows per block (16 per warp)
-constexpr int AK = 64;                // attention keys per tile
 
 enum Epilogue { EPI_BIAS_BF16 = 0, EPI_GELU_BF16 = 1, EPI_RES_F32 = 2, EPI_RES_BF16 = 3 };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -67,10 +55,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
-}
-
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
 
 // C[M, N] = A[M, K] . W[N, K]^T with a fused epilogue.  W is the torch
@@ -183,119 +167,20 @@ gemm_kernel(const InT* __restrict__ a_in, const bf16* __restrict__ ln_w,
     }
 }
 
-// One block per (64 q rows, head, image) over qkv [B, N, 3D] -> out [B, N, D].
-// Warp w owns q rows 16w..16w+15; lane pair (2r, 2r+1) owns row r's softmax
-// statistics, each lane half of a 64-key tile.
+// One block per (64 q rows, head, image) over qkv [B, N, 3D] -> out [B, N, D]
+// (device code in attention.cuh, shared with the K2 forward).
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ key_mask,
                  bf16* __restrict__ out, int N, int D, int n_real, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int ldq = HD + APAD, lds = AK + CPAD, ldp = AK + APAD, ldo = HD + CPAD;
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Ks = Qs + AQ * ldq;
-    bf16* Vs = Ks + AK * ldq;
-    float* Ss = reinterpret_cast<float*>(Vs + AK * ldq);
-    bf16* Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * lds);
-    float* Os = reinterpret_cast<float*>(Ps + 4 * 16 * ldp);
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
+    const int h = blockIdx.y, b = blockIdx.z;
     const size_t row3 = (size_t)3 * D;
     const bf16* base = qkv + (size_t)b * N * row3 + h * HD;
-    const uint8_t* mask = key_mask ? key_mask + (size_t)b * N : nullptr;
-    float* Sw = Ss + warp * 16 * lds;
-    bf16* Pw = Ps + warp * 16 * ldp;
-    float* Ow = Os + warp * 16 * ldo;
-    const int r = lane >> 1, half = (lane & 1) * 32;
-
-    for (int i = tid; i < AQ * HD / 8; i += THREADS) {
-        const int rr = i / (HD / 8), c = (i % (HD / 8)) * 8;
-        copy16(&Qs[rr * ldq + c], base + (q0 + rr) * row3 + c);
-    }
-
-    // S tile (16 q rows x 64 keys) of this warp into Sw
-    auto scores = [&]() {
-#pragma unroll
-        for (int j = 0; j < AK / 16; ++j) {
-            FragC s;
-            wmma::fill_fragment(s, 0.f);
-#pragma unroll
-            for (int kk = 0; kk < HD; kk += 16) {
-                FragA fa;
-                FragBt fb;
-                wmma::load_matrix_sync(fa, Qs + warp * 16 * ldq + kk, ldq);
-                wmma::load_matrix_sync(fb, Ks + j * 16 * ldq + kk, ldq);
-                wmma::mma_sync(s, fa, fb, s);
-            }
-            wmma::store_matrix_sync(Sw + j * 16, s, lds, wmma::mem_row_major);
-        }
-        __syncwarp();
-    };
-    auto logit = [&](int k0, int col) {
-        const int key = k0 + col;
-        const bool ok = key < n_real && (mask == nullptr || mask[key] != 0);
-        return ok ? Sw[r * lds + col] * scale : -1e30f;
-    };
-
-    // pass 1: row max and sum of exp(s - max)
-    float m_run = -INFINITY, l_run = 0.f;
-    for (int k0 = 0; k0 < N; k0 += AK) {
-        for (int i = tid; i < AK * HD / 8; i += THREADS) {
-            const int rr = i / (HD / 8), c = (i % (HD / 8)) * 8;
-            copy16(&Ks[rr * ldq + c], base + (k0 + rr) * row3 + D + c);
-        }
-        __syncthreads();
-        scores();
-        float t_max = -INFINITY;
-        for (int c = 0; c < 32; ++c) t_max = fmaxf(t_max, logit(k0, half + c));
-        t_max = fmaxf(t_max, __shfl_xor_sync(0xffffffffu, t_max, 1));
-        const float m_new = fmaxf(m_run, t_max);
-        float t_sum = 0.f;
-        for (int c = 0; c < 32; ++c) t_sum += expf(logit(k0, half + c) - m_new);
-        t_sum += __shfl_xor_sync(0xffffffffu, t_sum, 1);
-        l_run = l_run * expf(m_run - m_new) + t_sum;
-        m_run = m_new;
-        __syncthreads();
-    }
-
-    // pass 2: p = exp(s - max) / sum, rounded to bf16, times v
-    FragC o[HD / 16];
-#pragma unroll
-    for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(o[f], 0.f);
-    for (int k0 = 0; k0 < N; k0 += AK) {
-        for (int i = tid; i < AK * HD / 8; i += THREADS) {
-            const int rr = i / (HD / 8), c = (i % (HD / 8)) * 8;
-            copy16(&Ks[rr * ldq + c], base + (k0 + rr) * row3 + D + c);
-            copy16(&Vs[rr * ldq + c], base + (k0 + rr) * row3 + 2 * D + c);
-        }
-        __syncthreads();
-        scores();
-        for (int c = 0; c < 32; ++c)
-            Pw[r * ldp + half + c] = __float2bfloat16(expf(logit(k0, half + c) - m_run) / l_run);
-        __syncwarp();
-#pragma unroll
-        for (int kk = 0; kk < AK; kk += 16) {
-            FragA fp;
-            wmma::load_matrix_sync(fp, Pw + kk, ldp);
-#pragma unroll
-            for (int f = 0; f < HD / 16; ++f) {
-                FragB fv;
-                wmma::load_matrix_sync(fv, Vs + kk * ldq + f * 16, ldq);
-                wmma::mma_sync(o[f], fp, fv, o[f]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int f = 0; f < HD / 16; ++f)
-        wmma::store_matrix_sync(Ow + f * 16, o[f], ldo, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) {
-        const int rr = i / HD, c = i % HD;
-        out[((size_t)b * N + q0 + warp * 16 + rr) * D + h * HD + c] = __float2bfloat16(Ow[rr * ldo + c]);
-    }
+    attention_block<HD>(base, base + D, base + 2 * D, row3,
+                        key_mask ? key_mask + (size_t)b * N : nullptr,
+                        out + (size_t)b * N * D + h * HD, D, nullptr, nullptr,
+                        blockIdx.x * AQ, N, n_real, scale, smem);
 }
 
 size_t gemm_smem(bool ln, int K) {
@@ -320,11 +205,7 @@ cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float
 template <int HD>
 cudaError_t launch_attention(const void* qkv, const void* key_mask, void* out, int batch,
                              int N, int D, int n_real, float scale, cudaStream_t stream) {
-    constexpr int ldq = HD + APAD;
-    const size_t smem = (size_t)(AQ + 2 * AK) * ldq * sizeof(bf16)
-                        + (size_t)4 * 16 * (AK + CPAD) * sizeof(float)
-                        + (size_t)4 * 16 * (AK + APAD) * sizeof(bf16)
-                        + (size_t)4 * 16 * (HD + CPAD) * sizeof(float);
+    const size_t smem = attention_smem_bytes<HD>();
     cudaError_t err = cudaFuncSetAttribute(attention_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

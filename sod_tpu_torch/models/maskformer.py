@@ -44,30 +44,49 @@ class MaskFormerConfig:
 # (Config field, the one value the port runs, where the rest is queued)
 _LIVE_ONLY = (
     ("arch", "vit_small", "ROADMAP item 8, models/resnet.py"),
-    ("use_binary_classifier", True, "ROADMAP item 13, the non-bc head"),
+    ("use_binary_classifier", True,
+     "ROADMAP item 13, the non-bc head and the Hungarian loss branch"),
     ("learnable_pixel_decoder", False,
      "ROADMAP item 13, the learnable pixel decoder"),
     ("quantize", "none", "ROADMAP item 9, int8 serving with kernel K8"),
     ("use_fused_eval", False, "ROADMAP item 7, kernels K5 and K4"),
     ("use_fused_mlp", False, "ROADMAP kernel K4"),
     ("use_fused_train", False, "ROADMAP item 6, kernels K3 and K4"),
+    ("remat", False, "ROADMAP item 6, block rematerialisation"),
+    ("use_copy_paste", False, "ROADMAP item 6, copy-paste augmentation"),
+    ("loss_every_decoder_layer", True,
+     "ROADMAP item 6, the last-layer-only loss"),
+    ("async_checkpoint", False, "ROADMAP item 6, AsyncSaver"),
+    ("fsdp", "none", "ROADMAP item 12, parallel/fsdp.py"),
+    ("mesh_data_axis", 1, "ROADMAP item 12, data parallelism"),
+    ("mesh_model_axis", 1, "ROADMAP item 12, parallel/tp.py"),
+    ("mesh_pipe_axis", 1, "ROADMAP item 12, parallel/pp.py"),
+    ("mesh_seq_axis", 1, "ROADMAP item 12, parallel/sp.py"),
 )
 
 
 def config_from(cfg) -> MaskFormerConfig:
     """MaskFormerConfig from the flat experiment ``Config`` (any object
     with its fields).  Raises ``NotImplementedError`` for a setting off the
-    live configuration instead of ignoring it."""
+    live configuration instead of ignoring it.  ``use_pallas_attention``
+    routes the encoder's self-attention through the K2 kernels
+    (``sod_tpu/models/maskformer.py:94``)."""
     for key, live, where in _LIVE_ONLY:
         value = getattr(cfg, key, live)
         if value != live:
             raise NotImplementedError(
                 f"{key}={value!r} is not ported to sod_tpu_torch ({where}); "
                 f"the port runs {key}={live!r}")
-    return MaskFormerConfig(n_queries=cfg.n_queries,
-                            n_decoder_layers=cfg.n_decoder_layers,
-                            scale_factor=cfg.scale_factor,
-                            vit=vit_small(patch_size=cfg.patch_size))
+    if (getattr(cfg, "grad_accum_mode", "averaged") == "exact"
+            and getattr(cfg, "grad_accum_steps", 1) > 1):
+        raise NotImplementedError(
+            "grad_accum_mode='exact' is not ported to sod_tpu_torch (ROADMAP "
+            "item 6, GradCache accumulation); the port runs 'averaged'")
+    return MaskFormerConfig(
+        n_queries=cfg.n_queries, n_decoder_layers=cfg.n_decoder_layers,
+        scale_factor=cfg.scale_factor,
+        vit=vit_small(patch_size=cfg.patch_size,
+                      use_flash=getattr(cfg, "use_pallas_attention", True)))
 
 
 class DecoderLayer(nn.Module):

@@ -31,16 +31,17 @@ class ViTConfig:
     depth: int = 12
     n_heads: int = 6
     pos_grid: int = 28            # the pretrained 224-px pos-embed grid
+    use_flash: bool = False       # self-attention through the K2 kernels
 
     @property
     def n_pos_tokens(self) -> int:
         return self.pos_grid * self.pos_grid + 1
 
 
-def vit_small(patch_size: int = 8) -> ViTConfig:
+def vit_small(patch_size: int = 8, use_flash: bool = False) -> ViTConfig:
     """deit_small: d 384, 6 heads, 12 blocks."""
     return ViTConfig(patch_size=patch_size, embed_dim=384, n_heads=6,
-                     pos_grid=224 // patch_size)
+                     pos_grid=224 // patch_size, use_flash=use_flash)
 
 
 class Mlp(nn.Module):
@@ -54,13 +55,14 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm encoder block; ``forward`` is the unfused erf-GELU path."""
+    """Pre-norm encoder block; ``forward`` is the unfused erf-GELU path
+    (``_block_apply``), its attention through K2 under ``cfg.use_flash``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         d = cfg.embed_dim
         self.norm1 = LayerNorm(d, LN_EPS)
-        self.attn = Attention(d, cfg.n_heads)
+        self.attn = Attention(d, cfg.n_heads, use_flash=cfg.use_flash)
         self.norm2 = LayerNorm(d, LN_EPS)
         self.mlp = Mlp(d, MLP_RATIO * d)
 

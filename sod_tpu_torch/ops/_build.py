@@ -7,15 +7,17 @@ library with a plain C interface and loaded with ``ctypes``:
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``sod_tpu_torch/_build/`` (git-ignored), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the cached library.  Delete ``_build/`` to force a
-rebuild.  ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else the one on ``PATH``,
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library.
+Different libraries build concurrently (one lock per name).  Delete
+``_build/`` to force a rebuild.  ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else the one on ``PATH``,
 else ``/usr/local/cuda/bin/nvcc``.  Nothing is built at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -26,7 +28,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_build_lock = threading.Lock()          # one build per process at a time
+_build_locks: dict = {}                # name -> lock: one build per library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,8 +42,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -53,7 +58,7 @@ def load(name: str) -> ctypes.CDLL:
     compiler's report (registers, shared memory, spills per kernel) is kept
     beside the library as ``<library>.log``."""
     so = library_path(name)
-    with _build_lock:
+    with _build_locks.setdefault(name, threading.Lock()):
         if not os.path.exists(so):
             _compile(name, so)
     return ctypes.CDLL(so)

@@ -3,6 +3,8 @@
 Explicit matmuls and softmax, with ``sod_tpu``'s rounding points: f32
 logits and softmax, masked keys at -1e30, probabilities cast to
 ``v.dtype`` before p.v, the p.v product accumulated in f32 and cast back.
+The ViT self-attention can route through the flash attention kernel K2
+(``ops/flash_attention.py``), as ``sod_tpu``'s ``use_flash`` does.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from sod_tpu_torch.ops.flash_attention import flash_attention
 from sod_tpu_torch.ops.layers import Linear, linear
 
 
@@ -39,13 +42,22 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def self_attention_qkv(qkv: Linear, proj: Linear, x: torch.Tensor,
                        n_heads: int,
-                       key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ViT fused-QKV self-attention over x [B, N, D]; qkv columns [q|k|v]."""
+                       key_mask: Optional[torch.Tensor] = None,
+                       use_flash: bool = False) -> torch.Tensor:
+    """ViT fused-QKV self-attention over x [B, N, D]; qkv columns [q|k|v].
+
+    :param use_flash: softmax(q k^T) v through ``flash_attention`` (K2;
+        ``sod_tpu/ops/attention.py:89-92``), else through ``sdpa``."""
     b, n, d = x.shape
     hd = d // n_heads
     y = qkv(x).reshape(b, n, 3, n_heads, hd)
     q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
-    return proj(_merge_heads(sdpa(q, k, v, hd ** -0.5, key_mask)))
+    if use_flash:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              hd ** -0.5, key_mask)
+    else:
+        out = sdpa(q, k, v, hd ** -0.5, key_mask)
+    return proj(_merge_heads(out))
 
 
 def multi_head_attention(attn: "MultiheadAttention", query: torch.Tensor,
@@ -67,14 +79,16 @@ def multi_head_attention(attn: "MultiheadAttention", query: torch.Tensor,
 class Attention(nn.Module):
     """ViT attention parameters (``attn.qkv``, ``attn.proj``)."""
 
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, use_flash: bool = False):
         super().__init__()
         self.n_heads = n_heads
+        self.use_flash = use_flash
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
     def forward(self, x):
-        return self_attention_qkv(self.qkv, self.proj, x, self.n_heads)
+        return self_attention_qkv(self.qkv, self.proj, x, self.n_heads,
+                                  use_flash=self.use_flash)
 
 
 class MultiheadAttention(nn.Module):

@@ -26,8 +26,10 @@ from torch import nn
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x . weight^T + bias`` in f32, cast back to ``x.dtype``."""
-    y = torch.matmul(x.float(), weight.float().t())
+    """``x . weight^T + bias`` in f32, cast back to ``x.dtype``.  The weight
+    is first rounded to ``x.dtype`` (``sod_tpu``'s ``w.astype(x.dtype)``:
+    f32 master weights meet bf16 activations as bf16); the bias stays f32."""
+    y = torch.matmul(x.float(), weight.to(x.dtype).float().t())
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
@@ -45,8 +47,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, torch ``nn.GELU``'s default."""
-    return F.gelu(x)
+    """Exact (erf) GELU, torch ``nn.GELU``'s default.  Below f32 it keeps
+    the rounding points of ``jax.nn.gelu(approximate=False)`` as written,
+    ``0.5 * x * erfc(-x * sqrt(0.5))`` with each product rounded to
+    ``x.dtype``, instead of one rounding of an f32 GELU."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x)
+    sqrt_half = torch.tensor(0.5 ** 0.5, dtype=x.dtype)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
 
 
 def mlp_apply(layers: Sequence["Linear"], x: torch.Tensor,

@@ -125,6 +125,26 @@ def test_bf16_fused_forward_matches_sod_tpu(weights, rng, interpret_k1,
     assert np.all(chosen >= theirs.max(-1) - tol)
 
 
+def test_bf16_forward_with_f32_params_matches_sod_tpu(weights, rng):
+    """Training's mix: f32 master weights, bf16 compute, unfused.  Every
+    linear rounds its weight to bf16 first, as ``sod_tpu``'s
+    ``w.astype(x.dtype)`` does; with XLA's excess precision off the two
+    agree to f32 noise."""
+    params, model = weights
+    x = rng.randn(2, 32, 32, 3).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    fwd = jax.jit(lambda p, v: maskformer_apply(p, v, JCFG))
+    ref = fwd.lower(params, xj).compile(
+        compiler_options={"xla_allow_excess_precision": False})(params, xj)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x).to(torch.bfloat16))
+    for k in ("mask_pred", "objectness"):
+        np.testing.assert_allclose(_np(out[k]), _np(ref[k]), atol=1e-5, rtol=0,
+                                   err_msg=k)
+    np.testing.assert_allclose(_np(out["features"]), _np(ref["features"]),
+                               atol=0, rtol=2.0 ** -8)
+
+
 def test_fused_fp32_request_runs_the_unfused_blocks(weights, rng):
     _, model = weights
     x = torch.from_numpy(rng.randn(1, 32, 32, 3).astype(np.float32))
@@ -158,12 +178,36 @@ def test_config_from_takes_the_live_configuration():
             mcfg.vit.patch_size, mcfg.vit.pos_grid) == (384, 6, 12, 8, 28)
 
 
+@pytest.mark.parametrize("flash", [True, False])
+def test_config_from_maps_pallas_attention_onto_use_flash(flash):
+    """``use_pallas_attention`` -> ``ViTConfig.use_flash`` -> every block's
+    attention through K2 (sod_tpu/models/maskformer.py:94)."""
+    cfg = _Cfg()
+    cfg.use_pallas_attention = flash
+    mcfg = config_from(cfg)
+    assert mcfg.vit.use_flash is flash
+    model = MaskFormer(mcfg)
+    assert all(blk.attn.use_flash is flash for blk in model.encoder.blocks)
+
+
 @pytest.mark.parametrize("key,value", [
     ("arch", "resnet50"), ("use_binary_classifier", False),
     ("learnable_pixel_decoder", True), ("quantize", "int8"),
-    ("use_fused_eval", True), ("use_fused_mlp", True), ("use_fused_train", True)])
+    ("use_fused_eval", True), ("use_fused_mlp", True), ("use_fused_train", True),
+    ("remat", True), ("use_copy_paste", True), ("loss_every_decoder_layer", False),
+    ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
+    ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
 def test_config_from_refuses_settings_it_does_not_port(key, value):
     cfg = _Cfg()
     setattr(cfg, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from(cfg)
+
+
+def test_config_from_refuses_exact_accumulation():
+    cfg = _Cfg()
+    cfg.grad_accum_mode, cfg.grad_accum_steps = "exact", 2
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        config_from(cfg)
+    cfg.grad_accum_steps = 1            # one micro-batch: nothing to refuse
+    config_from(cfg)
