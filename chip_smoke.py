@@ -7,8 +7,10 @@ Phases, each printed as it passes; any failure exits non-zero:
 
 1. card: a CUDA device of compute capability 9.0, its name and power limit
    from nvidia-smi; TF32 off for the plain versions;
-2. build: nvcc builds both kernel libraries from the checkout, in parallel
-   (the fused ViT block K1, flash attention K2);
+2. build: nvcc builds every kernel library from the checkout, in parallel
+   (the fused ViT block K1, flash attention K2, the gridded attention half
+   K5, the MLP half's forward K4, the threshold sweep K6, the upper-bound
+   counts K7);
 3. kernel: the fused block against its plain PyTorch version at the served
    shape (B=2, 785 tokens padded to 896, d 384, 6 heads), unmasked and
    masked, and at the other head widths it is built for; then both timed
@@ -33,7 +35,21 @@ Phases, each printed as it passes; any failure exits non-zero:
    64-image synthetic DUTS directory (RLE pseudo masks, yaml) for 2
    epochs, ``latest_model.pt``, then ``--resume`` for a third; then a
    learning check (scripts/learning_check.py's synthetic task, 300 steps,
-   lr 2e-5, warmup steps/5, monotone poly): eval IoU must exceed 0.8.
+   lr 2e-5, warmup steps/5, monotone poly): eval IoU must exceed 0.8;
+9. eval kernels at the eval shape (B=16, 400 px canvas: 2501 tokens,
+   d 384): K5 and the K4 forward within one bf16 ulp of their plain
+   versions (unmasked and masked), K6 on [16, 2, 400, 400] masks exactly
+   equal, K7 on [16, 20, 100, 100] -> 400 px within the count of pixels
+   whose plain upsampled value lies within 1e-6 of 0.5; kernel and plain
+   ms (K6 at B=16 and B=4);
+10. Evaluator: a 32-image synthetic DUTS-TE (200-400 px) at B=16 through
+   the default path and ``use_fused_eval``, each through the kernels and
+   through the plain versions: encoder-token and low-res-mask agreement,
+   launch counts per batch (12 K2 + 1 K6; 12 K5 + 12 K4 + 1 K7 + 1 K6;
+   12 K1 on a 224 px canvas), the 14 metric means both ways, eval img/s,
+   a profile of each path; then ``python -m sod_tpu_torch.cli.evaluate``'s
+   ``main`` on the directory and one Trainer epoch whose evaluation keeps
+   ``best_model_duts.pt``.
 
 The line before the last is the kernel report (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Needs no network and no jax.
@@ -98,8 +114,12 @@ def card_check():
              f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
 
+LIBRARIES = ("fused_block", "flash_attention", "fused_attn", "fused_mlp",
+             "fsweep", "fused_ub")
+
+
 def build_kernels():
-    """Both libraries at once: one nvcc per source, started together."""
+    """Every library at once: one nvcc per source, started together."""
     from sod_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -111,17 +131,17 @@ def build_kernels():
         except Exception as e:  # noqa: BLE001 - re-raised below
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(n,))
-               for n in ("fused_block", "flash_attention")]
+    threads = [threading.Thread(target=build, args=(n,)) for n in LIBRARIES]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    for name in ("fused_block", "flash_attention"):
+    for name in LIBRARIES:
+        print(f"  {name}:")
         print("\n".join(ptxas_report(_build.library_path(name) + ".log")))
-    phase(2, f"built {KERNEL['source']} and {K2['source']} in "
+    phase(2, f"built sod_tpu_torch/csrc/{{{','.join(LIBRARIES)}}}.cu in "
              f"{time.perf_counter() - t0:.1f} s (ptxas report above: "
              f"registers, stack and spills per kernel)")
 
@@ -695,11 +715,12 @@ def train_step_check():
     return times, prof
 
 
-def profile_steps(step, batch, n: int, step_ms: float):
+def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step"):
     """torch.profiler over ``n`` steps: device busy ms per step (sum of the
     CUDA kernels' times; one stream, so no overlap) and the idle share
     against ``step_ms``, the step's time with the profiler off (the
-    profiler's own host cost stretches the profiled steps)."""
+    profiler's own host cost stretches the profiled steps).  ``unit`` names
+    a step in the printout."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -718,15 +739,16 @@ def profile_steps(step, batch, n: int, step_ms: float):
         print("  profiler: no device time recorded (idle share not measured)")
         return {"busy_ms": None, "idle_share": None}
     idle = 1 - busy / step_ms
-    print(f"  profile over {n} steps: device busy {busy:.3f} ms/step, idle "
-          f"share {idle:.3f} of the {step_ms:.3f} ms unprofiled step "
-          f"(profiled wall {wall:.3f} ms/step), "
-          f"{sum(e.count for e in kernels) / n:.0f} kernels/step", flush=True)
+    print(f"  profile over {n} {unit}s: device busy {busy:.3f} ms/{unit}, idle "
+          f"share {idle:.3f} of the {step_ms:.3f} ms unprofiled {unit} "
+          f"(profiled wall {wall:.3f} ms/{unit}), "
+          f"{sum(e.count for e in kernels) / n:.0f} kernels/{unit}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+        print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/{unit} "
               f"x{e.count // n:<5d} {e.key[:90]}")
-    groups = {"K2 (flash_*)": ("flash_",), "GEMMs": ("gemm", "xmma", "cutlass"),
-              "copies and casts": ("copy",)}
+    groups = {"the port's kernels": ("flash_", "gemm_kernel", "attention_kernel",
+                                     "sweep_", "ub_count"),
+              "cuBLAS GEMMs": ("gemm", "xmma", "cutlass"), "copies and casts": ("copy",)}
     shares = {g: 0.0 for g in (*groups, "other")}
     for e in kernels:
         g = next((g for g, keys in groups.items()
@@ -884,6 +906,369 @@ def learning_check(steps: int, size: int):
     return iou0, eval_iou(eval_batch)
 
 
+K4_FWD = {"name": "fused_ln_mlp_forward", "route": "cuda",
+          "source": "sod_tpu_torch/csrc/fused_mlp.cu",
+          "replaces": "sod_tpu/ops/fused_mlp.py:57"}
+K5 = {"name": "fused_ln_attn_infer", "route": "cuda",
+      "source": "sod_tpu_torch/csrc/fused_attn.cu",
+      "replaces": "sod_tpu/ops/fused_attn.py:462"}
+K6 = {"name": "fmax_tp_cnt", "route": "cuda", "source": "sod_tpu_torch/csrc/fsweep.cu",
+      "replaces": "sod_tpu/ops/fsweep.py:58"}
+K7 = {"name": "ub_inter_cnt", "route": "cuda", "source": "sod_tpu_torch/csrc/fused_ub.cu",
+      "replaces": "sod_tpu/ops/fused_ub.py:58"}
+# the eval shape: B=16 on a 400 px canvas (50 x 50 patches + CLS = 2501
+# tokens), 20 queries
+EVAL_B, EVAL_SIDE, EVAL_Q = 16, 400, 20
+
+
+def bf16_ulp_at(ref) -> float:
+    """One bf16 ulp (8 significand bits) at the largest |ref|."""
+    return 2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7)
+
+
+def timed_pair(kern, plain, iters: int = 10):
+    """(kernel ms, plain ms) per call with CUDA events, in turns on one
+    card: plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def eval_kernels_check(b: int = EVAL_B, side: int = EVAL_SIDE):
+    """Phase 9: K5, the K4 forward, K6 and K7 against their plain versions
+    at the eval shape; returns {name: (max_abs or count diff, kernel ms,
+    plain ms)}."""
+    import torch
+
+    from sod_tpu_torch.ops import fsweep, fused_attn, fused_mlp, fused_ub
+    from sod_tpu_torch.ops.resize import bilinear_separable
+
+    rng = np.random.default_rng(9)
+    out = {}
+    g = side // 8
+    n, d, h = g * g + 1, 384, 6
+    n_pad = -(-n // 128) * 128
+    blk = make_block(rng, d, h, True)
+    x = torch.from_numpy(rng.standard_normal((b, n_pad, d), np.float32)
+                         ).to(device="cuda", dtype=torch.bfloat16)
+    # canvas-style key mask: each image's valid grid is a top-left rectangle
+    gh = rng.integers(g // 2, g + 1, b)
+    gw = rng.integers(g // 2, g + 1, b)
+    gh[0] = gw[0] = g
+    grid = np.arange(g)
+    valid = (grid[None, :, None] < gh[:, None, None]) & (grid[None, None, :] < gw[:, None, None])
+    km = np.zeros((b, n_pad), bool)
+    km[:, 0] = True
+    km[:, 1:n] = valid.reshape(b, -1)
+    key_mask = torch.from_numpy(km).cuda()
+
+    def check_bf16(name, got, ref):
+        max_abs, rel_l2, corr = errors(got, ref)
+        ulp = bf16_ulp_at(ref)
+        ok = bool(torch.isfinite(got).all()) and max_abs <= ulp and corr > KERNEL_MIN_CORR
+        print(f"  {name}: max_abs {max_abs:.6g} (bound: one bf16 ulp at the output's "
+              f"magnitude, {ulp:.6g}) rel_l2 "
+              f"{rel_l2:.6g} corr {corr:.9f} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return max_abs
+
+    with torch.inference_mode():
+        worst5 = 0.0
+        for tag, mask in (("unmasked", None), ("masked", key_mask)):
+            got = fused_attn.fused_ln_attn_infer(x, blk, h, n, key_mask=mask)
+            torch.cuda.synchronize()
+            ref = fused_attn.fused_ln_attn_infer_reference(x, blk, h, n, key_mask=mask)
+            worst5 = max(worst5, check_bf16(f"K5 B={b} N={n} (pad {n_pad}) d={d} {tag}",
+                                            got[:, :n], ref[:, :n]))
+        times5 = timed_pair(lambda: fused_attn.fused_ln_attn_infer(x, blk, h, n, key_mask),
+                            lambda: fused_attn.fused_ln_attn_infer_reference(
+                                x, blk, h, n, key_mask), 5)
+        out["K5"] = (worst5, *times5)
+
+        x1 = (x.float() * 2).to(torch.bfloat16)
+        got = fused_mlp.fused_ln_mlp(x1, blk)
+        torch.cuda.synchronize()
+        ref = fused_mlp.fused_ln_mlp_reference(x1, blk)
+        worst4 = check_bf16(f"K4 forward rows={b * n_pad} d={d}", got, ref)
+        out["K4"] = (worst4, *timed_pair(lambda: fused_mlp.fused_ln_mlp(x1, blk),
+                                         lambda: fused_mlp.fused_ln_mlp_reference(x1, blk)))
+        for t in ("K5", "K4"):
+            print(f"  {t}: kernel {out[t][1]:.4f} ms, plain {out[t][2]:.4f} ms per call",
+                  flush=True)
+
+        # K6 at masks [B, 2, 400, 400]: random values, some on the thresholds
+        table = fsweep.threshold_table(255, "cpu").numpy()
+        sizes = np.stack([rng.integers(side // 2, side + 1, b),
+                          rng.integers(side // 2, side + 1, b)], 1)
+        sizes[0] = side
+        masks = rng.random((b, 2, side, side), dtype=np.float32)
+        on = rng.random(masks.shape) < 0.2
+        masks[on] = table[rng.integers(0, 255, int(on.sum()))]
+        gt = (rng.random((b, side, side)) > 0.5).astype(np.float32)
+        rowv = torch.from_numpy(np.arange(side)[None] < sizes[:, :1]).cuda()
+        colv = torch.from_numpy(np.arange(side)[None] < sizes[:, 1:]).cuda()
+        masks_t, gt_t = torch.from_numpy(masks).cuda(), torch.from_numpy(gt).cuda()
+        got = fsweep.fmax_tp_cnt(masks_t, gt_t, rowv, colv)
+        torch.cuda.synchronize()
+        ref = fsweep.fmax_tp_cnt_reference(masks_t, gt_t, rowv, colv)
+        diff6 = sum(int((g != r).sum()) for g, r in zip(got, ref))
+        print(f"  K6 masks {tuple(masks.shape)}: {diff6} of "
+              f"{2 * got[0].numel()} counts differ (must be 0)", flush=True)
+        if diff6:
+            raise AssertionError("K6 counts differ from its plain version")
+        t16 = timed_pair(lambda: fsweep.fmax_tp_cnt(masks_t, gt_t, rowv, colv),
+                         lambda: fsweep.fmax_tp_cnt_reference(masks_t, gt_t, rowv, colv), 5)
+        m4, g4, r4, c4 = masks_t[:4].contiguous(), gt_t[:4], rowv[:4], colv[:4]
+        t4 = timed_pair(lambda: fsweep.fmax_tp_cnt(m4, g4, r4, c4),
+                        lambda: fsweep.fmax_tp_cnt_reference(m4, g4, r4, c4), 5)
+        print(f"  K6 B=16: kernel {t16[0]:.4f} ms, plain {t16[1]:.4f} ms; B=4: kernel "
+              f"{t4[0]:.4f} ms, plain {t4[1]:.4f} ms per call", flush=True)
+        out["K6"] = (diff6, *t16)
+
+        # K7 at [B, 20, 100, 100] -> 400 px; sigmoid-like values around 0.5
+        low = torch.from_numpy(1 / (1 + np.exp(-3 * rng.standard_normal(
+            (b, EVAL_Q, side // 4, side // 4))).astype(np.float32))).cuda()
+        got = fused_ub.ub_inter_cnt(low, gt_t, rowv, colv)
+        torch.cuda.synchronize()
+        ref = fused_ub.ub_inter_cnt_reference(low, gt_t, rowv, colv)
+        near = torch.stack([((bilinear_separable(low[:, q], side, side) - 0.5).abs() <= 1e-6)
+                            .logical_and(rowv[:, :, None] & colv[:, None, :]).sum((1, 2))
+                            for q in range(EVAL_Q)], 1).float()
+        diff7 = [(g - r).abs() for g, r in zip(got, ref)]
+        n_diff = int(sum(int((dd > 0).sum()) for dd in diff7))
+        ok = all(bool((dd <= near).all()) for dd in diff7)
+        print(f"  K7 low {tuple(low.shape)} -> {side} px: {n_diff} of "
+              f"{2 * got[0].numel()} counts differ, by at most {float(max(dd.max() for dd in diff7)):.0f}; "
+              f"{int(near.sum())} plain upsampled values within 1e-6 of 0.5 "
+              f"(the bound) -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("K7 counts differ beyond the near-0.5 pixels")
+        t7 = timed_pair(lambda: fused_ub.ub_inter_cnt(low, gt_t, rowv, colv),
+                        lambda: fused_ub.ub_inter_cnt_reference(low, gt_t, rowv, colv), 5)
+        print(f"  K7 B=16: kernel {t7[0]:.4f} ms, plain {t7[1]:.4f} ms per call", flush=True)
+        out["K7"] = (float(max(dd.max() for dd in diff7)), *t7)
+    phase(9, "K5 and the K4 forward within one bf16 ulp of their plain versions, "
+             "K6 exact, K7 within the near-0.5 bound, at the eval shape")
+    return out
+
+
+
+def write_duts_te(root: str, n: int, lo: int, hi: int, seed: int) -> None:
+    """A synthetic DUTS-TE split under ``root/DUTS``: JPEG images (a bright
+    box on a dark noisy ground) and PNG GT masks with sides in [lo, hi];
+    the first image is hi x hi, so the canvas is hi px."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    te, gtd = (os.path.join(root, "DUTS", d) for d in ("DUTS-TE-Image", "DUTS-TE-Mask"))
+    os.makedirs(te)
+    os.makedirs(gtd)
+    for i in range(n):
+        h, w = (hi, hi) if i == 0 else rng.integers(lo, hi + 1, 2)
+        img = (rng.random((h, w, 3)) * 60).astype(np.uint8)
+        y0, x0 = rng.integers(0, h // 3), rng.integers(0, w // 3)
+        y1, x1 = y0 + rng.integers(h // 4, h // 2), x0 + rng.integers(w // 4, w // 2)
+        img[y0:y1, x0:x1] += 150
+        gt = np.zeros((h, w), np.uint8)
+        gt[y0:y1, x0:x1] = 255
+        Image.fromarray(img).save(os.path.join(te, f"te_{i:03d}.jpg"), quality=95)
+        Image.fromarray(gt).save(os.path.join(gtd, f"te_{i:03d}.png"))
+
+
+@contextlib.contextmanager
+def plain_eval_kernels():
+    """Every kernel of the evaluation path replaced by its plain version on
+    CUDA tensors (the kernels' twin for phase 10)."""
+    from sod_tpu_torch.metrics import batched
+    from sod_tpu_torch.models import vit
+    from sod_tpu_torch.ops import fsweep, fused_attn, fused_block, fused_mlp, fused_ub
+
+    swaps = [(vit, "fused_vit_block", fused_block.fused_vit_block_reference),
+             (vit, "fused_ln_attn_infer", fused_attn.fused_ln_attn_infer_reference),
+             (vit, "fused_ln_mlp", fused_mlp.fused_ln_mlp_reference),
+             (batched, "fmax_tp_cnt", fsweep.fmax_tp_cnt_reference),
+             (batched, "ub_inter_cnt", fused_ub.ub_inter_cnt_reference)]
+    kept = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    with _PlainFlash():
+        for m, name, fn in swaps:
+            setattr(m, name, fn)
+        try:
+            yield
+        finally:
+            for m, name, fn in kept:
+                setattr(m, name, fn)
+
+
+def launch_counts() -> dict:
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.ops import fsweep, fused_attn, fused_block, fused_mlp, fused_ub
+
+    return {"K1": fused_block.launches, "K2 fwd": fa.fwd_launches,
+            "K5": fused_attn.launches, "K4 fwd": fused_mlp.launches,
+            "K6": fsweep.launches, "K7": fused_ub.launches}
+
+
+def reset_launch_counts() -> None:
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.ops import fsweep, fused_attn, fused_block, fused_mlp, fused_ub
+
+    fused_block.launches = fa.fwd_launches = fa.bwd_launches = 0
+    fused_attn.launches = fused_mlp.launches = fsweep.launches = fused_ub.launches = 0
+
+
+# Evaluator through the kernels vs through the plain versions, same weights
+# and images: single bf16 roundings that differ flip through 12 blocks, so
+# masks agree to a few 1e-2 at a few pixels (phase 4's served-mask bounds:
+# max 0.3, mean 0.01) and a near-tie of objectness can pick another query
+# for an image, which moves a mean over 32 images by up to 1/32
+EVAL_TOKENS_REL_L2, EVAL_MASK_MAX, EVAL_MASK_MEAN, EVAL_METRIC_TOL = 0.02, 0.3, 0.01, 0.05
+
+
+def evaluator_check(n_images: int = 32, side: int = EVAL_SIDE, small_side: int = 224,
+                    b: int = EVAL_B):
+    """Phase 10: the Evaluator on the card, both paths, kernels and plain;
+    the evaluate CLI; one Trainer epoch with its evaluation.  Returns the
+    launch counts of the main runs: {path: counts}."""
+    import torch
+    import yaml
+
+    from sod_tpu.config import load_config
+    from sod_tpu_torch.cli import evaluate as evaluate_cli
+    from sod_tpu_torch.cli import train as train_cli
+    from sod_tpu_torch.data.factory import get_dataset
+    from sod_tpu_torch.models.maskformer import (MaskFormer, config_from,
+                                                 maskformer_apply_canvas, random_state_dict)
+    from sod_tpu_torch.models.vit import vit_apply
+    from sod_tpu_torch.train.evaluator import Evaluator, canvas_inputs, collate_canvas
+
+    all_counts = {}
+    with tempfile.TemporaryDirectory() as root:
+        big, small = os.path.join(root, "big"), os.path.join(root, "small")
+        write_duts_te(big, n_images, side // 2, side, 10)
+        write_duts_te(small, b, small_side * 2 // 3, small_side, 11)
+        cfg = load_config(CONFIG, {"dir_dataset": big})
+        mcfg = config_from(cfg)
+        model = MaskFormer(mcfg)
+        model.load_state_dict(random_state_dict(model, cfg.seed))
+        model.cuda()
+        depth = mcfg.vit.depth
+
+        # one batch: encoder tokens and low-res masks, kernels vs plain
+        ds = get_dataset(big, "duts", "test")
+        ds.return_raw = True
+        batch = collate_canvas([ds[i] for i in range(b)], b, (side, side),
+                               mcfg.vit.patch_size)
+        grids = torch.from_numpy(batch["grid_sizes"]).cuda()
+        image, tok, pe = canvas_inputs(model, torch.from_numpy(batch["image"]).cuda(),
+                                       grids, torch.bfloat16)
+        with torch.inference_mode():
+            for fused in (False, True):
+                outs = []
+                for plain in (False, True):
+                    with (plain_eval_kernels() if plain else contextlib.nullcontext()):
+                        enc = vit_apply(model.encoder, image, fused=fused, token_mask=tok,
+                                        pos_embed_override=pe)
+                        low = maskformer_apply_canvas(model, image, tok, pe, grids,
+                                                      fused=fused)["mask_pred"][:, -1]
+                    outs.append((enc, low))
+                (ek, lk), (ep, lp) = outs
+                rel = float((ek.float() - ep.float()).norm() / ep.float().norm())
+                gap = (lk - lp).abs()
+                ok = (rel <= EVAL_TOKENS_REL_L2 and float(gap.max()) <= EVAL_MASK_MAX
+                      and float(gap.mean()) <= EVAL_MASK_MEAN and bool(torch.isfinite(lk).all()))
+                print(f"  {'use_fused_eval' if fused else 'default'} path, one B={b} batch "
+                      f"at {side} px: encoder tokens rel L2 {rel:.6g}, low-res masks "
+                      f"{tuple(lk.shape)} max_abs {float(gap.max()):.6g} mean_abs "
+                      f"{float(gap.mean()):.6g}, kernels vs plain -> {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError("the eval forward disagrees with its plain version")
+
+        n_batches = -(-n_images // b)
+        expected = {"default": {"K2 fwd": depth, "K6": 1},
+                    "use_fused_eval": {"K5": depth, "K4 fwd": depth, "K7": 1, "K6": 1}}
+        timings = {}
+        for path, exp in expected.items():
+            pcfg = load_config(CONFIG, {"dir_dataset": big,
+                                        "use_fused_eval": path == "use_fused_eval"})
+            ev = Evaluator(model, pcfg, mcfg, batch_size=b, device="cuda")
+            ev("duts")                                       # warm-up
+            res, secs = {}, {}
+            for mode in ("kernels", "plain"):
+                with (plain_eval_kernels() if mode == "plain" else contextlib.nullcontext()):
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    res[mode] = ev("duts", dir_ckpt=os.path.join(root, "eval", path, mode))
+                    torch.cuda.synchronize()
+                    secs[mode] = time.perf_counter() - t0
+                    counts = launch_counts()
+                want = ({k: v * n_batches for k, v in exp.items()} if mode == "kernels" else {})
+                got = {k: v for k, v in counts.items() if v}
+                print(f"  {path}, {mode}: launches {got} over {n_batches} batches "
+                      f"(expected {want}); {n_images / secs[mode]:.1f} img/s "
+                      f"({secs[mode] * 1e3:.1f} ms for {n_images} images)", flush=True)
+                if got != want:
+                    raise AssertionError(f"{path} ({mode}): launch counts {got}, expected {want}")
+                if mode == "kernels":
+                    all_counts[path] = counts
+            for k, got_v in res["kernels"].items():
+                plain_v = res["plain"][k]
+                print(f"    {k:18s} kernels {got_v:.6f}  plain {plain_v:.6f}")
+                if not (np.isfinite(got_v) and abs(got_v - plain_v) <= EVAL_METRIC_TOL):
+                    raise AssertionError(f"{path}: {k} {got_v} vs plain {plain_v}")
+            timings[path] = (n_images / secs["kernels"], n_images / secs["plain"])
+            profile_steps(lambda _: ev("duts"), None, 1, secs["kernels"] * 1e3,
+                          unit="eval call")
+
+        # the 224 px canvas: 785 tokens -> n_pad 896, the masked K1 route
+        scfg = load_config(CONFIG, {"dir_dataset": small, "use_fused_eval": True})
+        ev = Evaluator(model, scfg, mcfg, batch_size=b, device="cuda")
+        reset_launch_counts()
+        res = ev("duts")
+        counts = {k: v for k, v in launch_counts().items() if v}
+        print(f"  use_fused_eval on a {small_side} px canvas ({b} images): launches {counts}; "
+              f"iou {res['iou']:.4f}, iou_ub {res['iou_ub']:.4f}", flush=True)
+        if counts != {"K1": depth, "K7": 1, "K6": 1}:
+            raise AssertionError(f"224 px fused eval launched {counts}")
+        all_counts[f"use_fused_eval {small_side} px"] = launch_counts()
+
+        # the CLI once on the 400 px directory
+        with open(CONFIG) as f:
+            settings = yaml.safe_load(f)
+        settings.update(dir_dataset=big)
+        fp = os.path.join(root, "eval.yaml")
+        with open(fp, "w") as f:
+            yaml.safe_dump(settings, f)
+        t0 = time.perf_counter()
+        metrics = evaluate_cli.main(["--config", fp, "--dataset_name", "duts",
+                                     "--device", "cuda", "--dir_root", root])
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the evaluate CLI returned {metrics}")
+        print(f"  evaluate CLI: {len(metrics)} metrics in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # one Trainer epoch whose evaluation keeps best_model_duts
+        pm = write_duts(big, 16, settings["train_image_size"])
+        settings.update(dir_ckpt=os.path.join(root, "ckpt"), pseudo_masks_fp=pm, n_epochs=1)
+        with open(fp, "w") as f:
+            yaml.safe_dump(settings, f)
+        t0 = time.perf_counter()
+        train_cli.main(["--config", fp, "--device", "cuda"])
+        ckpt_dir = os.path.join(root, "ckpt", os.listdir(os.path.join(root, "ckpt"))[0])
+        with open(os.path.join(ckpt_dir, "best_scores.json")) as f:
+            best = json.load(f)
+        if not os.path.isfile(os.path.join(ckpt_dir, "best_model_duts.pt")) or "duts" not in best:
+            raise AssertionError("the Trainer's evaluation kept no best_model_duts")
+        print(f"  Trainer epoch + evaluation: best_model_duts.pt, best_scores {best}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase(10, f"Evaluator on the card: default {timings['default'][0]:.1f} img/s "
+              f"(plain {timings['default'][1]:.1f}), use_fused_eval "
+              f"{timings['use_fused_eval'][0]:.1f} img/s (plain "
+              f"{timings['use_fused_eval'][1]:.1f}); CLI and Trainer evaluation ran")
+    return all_counts
+
+
 def main():
     card_check()
     import torch
@@ -898,12 +1283,23 @@ def main():
     k2_worst, k2_times = k2_check()
     train_step_check()
     k2_launches = trainer_check()
+    ev = eval_kernels_check()
+    ev_counts = evaluator_check()
+    fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
     report = [dict(KERNEL, launches=launches, max_abs_err=max_abs,
                    ms=timings[1][0], plain_ms=timings[1][1]),
               dict(K2_FWD, launches=k2_launches[0], max_abs_err=k2_worst["fwd"],
                    ms=k2_times["fwd"][0], plain_ms=k2_times["fwd"][1]),
               dict(K2_BWD, launches=k2_launches[1], max_abs_err=k2_worst["bwd"],
-                   ms=k2_times["bwd"][0], plain_ms=k2_times["bwd"][1])]
+                   ms=k2_times["bwd"][0], plain_ms=k2_times["bwd"][1]),
+              dict(K4_FWD, launches=fused_run["K4 fwd"], max_abs_err=ev["K4"][0],
+                   ms=ev["K4"][1], plain_ms=ev["K4"][2]),
+              dict(K5, launches=fused_run["K5"], max_abs_err=ev["K5"][0],
+                   ms=ev["K5"][1], plain_ms=ev["K5"][2]),
+              dict(K6, launches=default_run["K6"], max_abs_err=ev["K6"][0],
+                   ms=ev["K6"][1], plain_ms=ev["K6"][2]),
+              dict(K7, launches=fused_run["K7"], max_abs_err=ev["K7"][0],
+                   ms=ev["K7"][1], plain_ms=ev["K7"][2])]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

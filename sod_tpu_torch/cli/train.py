@@ -3,8 +3,9 @@
     python -m sod_tpu_torch.cli.train --config configs/<yaml> \\
         [--seed N] [--suffix S] [--resume] [--p_state_dict ckpt.pt] [--device cuda]
 
-yaml -> Config, seeds, ``Trainer`` on one device, epochs with the skipped
-evaluation logged, ``--resume`` from this experiment's ``latest_model.pt``.
+yaml -> Config, seeds, ``Trainer`` on one device, epochs each followed by
+the canvas evaluation of the benchmarks on disk, ``--resume`` from this
+experiment's ``latest_model.pt``.
 The mesh flags of ``sod_tpu``'s CLI are accepted and refused: the parallel
 layouts are ROADMAP item 12.
 """

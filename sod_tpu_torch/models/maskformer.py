@@ -49,9 +49,10 @@ _LIVE_ONLY = (
     ("learnable_pixel_decoder", False,
      "ROADMAP item 13, the learnable pixel decoder"),
     ("quantize", "none", "ROADMAP item 9, int8 serving with kernel K8"),
-    ("use_fused_eval", False, "ROADMAP item 7, kernels K5 and K4"),
-    ("use_fused_mlp", False, "ROADMAP kernel K4"),
-    ("use_fused_train", False, "ROADMAP item 6, kernels K3 and K4"),
+    ("use_fused_mlp", False,
+     "ROADMAP item 6, the next training slice: K4's backward"),
+    ("use_fused_train", False,
+     "ROADMAP item 6, the next training slice: K3 and K4's backward"),
     ("remat", False, "ROADMAP item 6, block rematerialisation"),
     ("use_copy_paste", False, "ROADMAP item 6, copy-paste augmentation"),
     ("loss_every_decoder_layer", True,
@@ -70,7 +71,8 @@ def config_from(cfg) -> MaskFormerConfig:
     with its fields).  Raises ``NotImplementedError`` for a setting off the
     live configuration instead of ignoring it.  ``use_pallas_attention``
     routes the encoder's self-attention through the K2 kernels
-    (``sod_tpu/models/maskformer.py:94``)."""
+    (``sod_tpu/models/maskformer.py:94``); ``use_fused_eval`` is read by
+    the Evaluator, not by the model."""
     for key, live, where in _LIVE_ONLY:
         value = getattr(cfg, key, live)
         if value != live:
@@ -103,11 +105,13 @@ class DecoderLayer(nn.Module):
         self.norm2 = LayerNorm(d, DECODER_LN_EPS)
         self.norm3 = LayerNorm(d, DECODER_LN_EPS)
 
-    def forward(self, tgt, memory, query_pos):
+    def forward(self, tgt, memory, query_pos, memory_mask=None):
+        """:param memory_mask: [B, N] bool, False memory tokens (canvas
+        padding) excluded from the cross-attention."""
         qk = tgt + query_pos
         tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt))
         tgt = self.norm2(tgt + self.multihead_attn(tgt + query_pos, memory,
-                                                   memory))
+                                                   memory, memory_mask))
         return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
 
 
@@ -129,8 +133,9 @@ class MLP(nn.Module):
                                     for a, b in zip(dims[:-1], dims[1:]))
 
 
-def forward_transformer_decoder(model: "MaskFormer",
-                                memory: torch.Tensor) -> torch.Tensor:
+def forward_transformer_decoder(model: "MaskFormer", memory: torch.Tensor,
+                                memory_mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """Queries through every decoder layer: [B, L, Q, D], each layer's
     output passed through the decoder's final LayerNorm."""
     b, _, d = memory.shape
@@ -138,7 +143,7 @@ def forward_transformer_decoder(model: "MaskFormer",
     tgt = torch.zeros_like(query_pos)
     per_layer = []
     for layer in model.decoder.layers:
-        tgt = layer(tgt, memory, query_pos)
+        tgt = layer(tgt, memory, query_pos, memory_mask)
         per_layer.append(model.decoder.norm(tgt))
     return torch.stack(per_layer, dim=1)
 
@@ -183,14 +188,75 @@ class MaskFormer(nn.Module):
 
         queries = forward_transformer_decoder(self, memory)
         upsampled = forward_pixel_decoder(memory, grid, self.cfg.scale_factor)
-        # f32 operands: bf16 einsum would round its logits to bf16
-        mask_logits = torch.einsum("blqd,bhwd->blqhw", queries.float(),
-                                   upsampled.float())
-        objectness = mlp_apply(self.ffn.layers, queries.float(),
-                               activation="relu")
-        return {"mask_pred": torch.sigmoid(mask_logits),
-                "objectness": torch.sigmoid(objectness),
-                "features": queries[:, -1].mean(dim=1)}
+        return _heads(self, queries, upsampled)
+
+
+def _heads(model: MaskFormer, queries: torch.Tensor,
+           upsampled: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Mask head, objectness head and the contrastive features."""
+    # f32 operands: bf16 einsum would round its logits to bf16
+    mask_logits = torch.einsum("blqd,bhwd->blqhw", queries.float(),
+                               upsampled.float())
+    objectness = mlp_apply(model.ffn.layers, queries.float(),
+                           activation="relu")
+    return {"mask_pred": torch.sigmoid(mask_logits),
+            "objectness": torch.sigmoid(objectness),
+            "features": queries[:, -1].mean(dim=1)}
+
+
+def _replicate_edges(feats: torch.Tensor, gh: torch.Tensor,
+                     gw: torch.Tensor) -> torch.Tensor:
+    """Rows >= gh repeat row gh-1 and columns >= gw repeat column gw-1 of
+    each image's [G_h, G_w, D] grid (``feats`` [B, G_h, G_w, D]), so the
+    bilinear upsample of the canvas grid equals the edge-clamped upsample
+    of the true (gh, gw) grid inside the valid region."""
+    b, g_h, g_w, _ = feats.shape
+    rows = torch.minimum(torch.arange(g_h, device=feats.device), gh[:, None] - 1)
+    cols = torch.minimum(torch.arange(g_w, device=feats.device), gw[:, None] - 1)
+    idx = torch.arange(b, device=feats.device)[:, None, None]
+    return feats[idx, rows[:, :, None], cols[:, None, :]]
+
+
+def maskformer_apply_canvas(model: MaskFormer, x: torch.Tensor,
+                            token_mask: torch.Tensor,
+                            pos_embed_override: torch.Tensor,
+                            grid_sizes: torch.Tensor, fused: bool = False,
+                            scale_factor: Optional[int] = None,
+                            last_layer_only: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """Fixed-canvas forward of variable-size images (twin of
+    ``sod_tpu``'s ``maskformer_apply_canvas``): each image sits top-left
+    in the canvas ``x`` [B, H, W, 3]; canvas-padding tokens leave the
+    encoder's attention (``token_mask`` [B, 1+N], CLS True) and the
+    decoder's cross-attention; ``pos_embed_override`` [B, 1+N, D] holds
+    each image's own positional embeddings; the valid grid's edge rows and
+    columns are replicated over the padding before the pixel decoder's
+    upsample.  The result equals the forward of each image at its own size
+    inside its valid region.
+
+    :param grid_sizes: [B, 2] integer (gh, gw) per image.
+    :param scale_factor: the pixel decoder's upsample factor (default the
+        model's own; a parameter-free resize, so evaluation may change it).
+    :param last_layer_only: run the heads on the last decoder layer only
+        (L = 1), the one evaluation reads.
+    :return: ``mask_pred`` [B, L, Q, s*G_h, s*G_w] over the whole canvas,
+        ``objectness`` [B, L, Q, 1], ``features`` [B, D].
+    """
+    tokens = vit_apply(model.encoder, x, fused=fused, token_mask=token_mask,
+                       pos_embed_override=pos_embed_override)
+    memory = tokens[:, 1:]
+    queries = forward_transformer_decoder(model, memory,
+                                          memory_mask=token_mask[:, 1:])
+    b, n, d = memory.shape
+    p = model.cfg.vit.patch_size
+    gh_c, gw_c = x.shape[1] // p, x.shape[2] // p
+    grid = _replicate_edges(memory.reshape(b, gh_c, gw_c, d),
+                            grid_sizes[:, 0], grid_sizes[:, 1])
+    upsampled = forward_pixel_decoder(grid.reshape(b, n, d), (gh_c, gw_c),
+                                      scale_factor or model.cfg.scale_factor)
+    if last_layer_only:
+        queries = queries[:, -1:]
+    return _heads(model, queries, upsampled)
 
 
 def random_state_dict(model: MaskFormer, seed: int) -> Dict[str, torch.Tensor]:

@@ -8,14 +8,16 @@ Parameter names follow the reference's ``vision_transformer.py`` (DINO
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from sod_tpu_torch.ops.attention import Attention
+from sod_tpu_torch.ops.fused_attn import fused_ln_attn_infer
 from sod_tpu_torch.ops.fused_block import fused_vit_block
+from sod_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from sod_tpu_torch.ops.layers import LayerNorm, Linear, linear, mlp_apply
 from sod_tpu_torch.ops.resize import interpolate_bicubic
 
@@ -56,7 +58,8 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm encoder block; ``forward`` is the unfused erf-GELU path
-    (``_block_apply``), its attention through K2 under ``cfg.use_flash``."""
+    (``_block_apply``), its attention through K2 under ``cfg.use_flash``,
+    False keys of ``key_mask`` [B, N] excluded."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -66,8 +69,8 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(d, LN_EPS)
         self.mlp = Mlp(d, MLP_RATIO * d)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, key_mask=None):
+        x = x + self.attn(self.norm1(x), key_mask)
         return x + self.mlp(self.norm2(x))
 
 
@@ -132,9 +135,14 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(d, LN_EPS)
 
 
-def prepare_tokens(vit: VisionTransformer, x: torch.Tensor
+def prepare_tokens(vit: VisionTransformer, x: torch.Tensor,
+                   pos_embed_override: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """Patchify + CLS + interpolated pos-embed: ([B, 1+N, D], grid)."""
+    """Patchify + CLS + interpolated pos-embed: ([B, 1+N, D], grid).
+
+    :param pos_embed_override: [B or 1, 1+N, D] positional embeddings used
+        in place of the interpolated table (the canvas evaluator's
+        per-image embeddings, ``pos_embed_canvas_device``)."""
     cfg = vit.cfg
     x = make_input_divisible(x, cfg.patch_size)
     gh, gw = x.shape[1] // cfg.patch_size, x.shape[2] // cfg.patch_size
@@ -143,37 +151,110 @@ def prepare_tokens(vit: VisionTransformer, x: torch.Tensor
     b, _, d = tokens.shape
     cls = vit.cls_token.to(tokens.dtype).expand(b, 1, d)
     tokens = torch.cat([cls, tokens], dim=1)
-    pe = interpolate_pos_encoding(vit.pos_embed, (gh, gw), cfg.pos_grid)
+    if pos_embed_override is not None:
+        pe = pos_embed_override
+    else:
+        pe = interpolate_pos_encoding(vit.pos_embed, (gh, gw), cfg.pos_grid)
     return tokens + pe.to(tokens.dtype), (gh, gw)
 
 
 def vit_apply(vit: VisionTransformer, x: torch.Tensor,
-              fused: bool = False) -> torch.Tensor:
+              fused: bool = False,
+              token_mask: Optional[torch.Tensor] = None,
+              pos_embed_override: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """Encoder forward: the final-LayerNormed last-layer tokens [B, 1+N, D].
 
     :param x: [B, H, W, 3] normalized images.
-    :param fused: inference path through the fused block kernel, taken for
-        bf16 tokens with n_pad <= 1024 and D <= 512 (``sod_tpu``'s guard,
-        ``vit.py:324-325``).  Tokens are padded once to a multiple of 128
-        before the layer loop.  A bf16 request beyond the guard is one that
-        ``sod_tpu`` sends to its gridded kernels, not yet ported: it raises.
-        An f32 request runs the unfused erf-GELU blocks, as in ``sod_tpu``.
+    :param token_mask: [B, 1+N] bool; False tokens (canvas padding) are
+        excluded as attention keys.
+    :param pos_embed_override: see ``prepare_tokens``.
+    :param fused: inference path through the fused kernels for bf16
+        tokens, padded once to a multiple of 128 before the layer loop,
+        with ``sod_tpu``'s guard (``vit.py:324-389``): the whole-block
+        kernel K1 for n_pad <= 1024 and D <= 512, else the gridded K5
+        (attention half) then K4 (MLP half) per block.  An f32 request runs
+        the unfused erf-GELU blocks, as in ``sod_tpu``.
     """
     cfg = vit.cfg
-    tokens, _ = prepare_tokens(vit, x)
+    tokens, _ = prepare_tokens(vit, x, pos_embed_override)
     if fused and tokens.dtype == torch.bfloat16:
         b, n, d = tokens.shape
         n_pad = -(-n // 128) * 128
-        if n_pad > 1024 or d > 512:
-            raise NotImplementedError(
-                f"fused encoder at n_pad={n_pad}, d={d} is the gridded "
-                "LN+QKV / attention / MLP pipeline (ROADMAP kernels K5 and "
-                "K4), not ported yet")
         out = F.pad(tokens, (0, 0, 0, n_pad - n))
+        kmask = (None if token_mask is None
+                 else F.pad(token_mask, (0, n_pad - n)))
         for blk in vit.blocks:
-            out = fused_vit_block(out, blk, cfg.n_heads, n_real=n,
-                                  eps=LN_EPS)
+            if n_pad <= 1024 and d <= 512:
+                out = fused_vit_block(out, blk, cfg.n_heads, n_real=n,
+                                      key_mask=kmask, eps=LN_EPS)
+            else:
+                out = fused_ln_attn_infer(out, blk, cfg.n_heads, n_real=n,
+                                          key_mask=kmask, eps=LN_EPS)
+                out = fused_ln_mlp(out, blk, eps=LN_EPS)
         return vit.norm(out[:, :n])
     for blk in vit.blocks:
-        tokens = blk(tokens)
+        tokens = blk(tokens, token_mask)
     return vit.norm(tokens)
+
+
+def _dynamic_resize_matrix(in_size: int, out_size: int,
+                           n_valid: torch.Tensor) -> torch.Tensor:
+    """Bicubic interpolation matrices [B, out_size, in_size] for per-image
+    target lengths ``n_valid`` [B] <= out_size (rows >= n_valid are garbage
+    for the caller to mask): ``_resize_matrix``'s math (torch's A=-0.75
+    kernel, half-pixel centres, edge-clamped taps) in f32 with the scale a
+    tensor, as ``sod_tpu/models/vit.py:545-569``."""
+    a = -0.75
+    dev = n_valid.device
+    # a tensor divided by a tensor: torch turns `int / tensor` into a product
+    # with the reciprocal
+    scale = torch.tensor(float(in_size), device=dev) / n_valid.float()[:, None]
+    dst = torch.arange(out_size, dtype=torch.float32, device=dev)
+    src = (dst + 0.5) * scale - 0.5
+    i0 = torch.floor(src)
+    frac = src - i0
+    cols = torch.arange(in_size, device=dev)
+    mat = torch.zeros(n_valid.shape[0], out_size, in_size, device=dev)
+    for t in range(-1, 3):
+        x = (t - frac).abs()
+        x2 = x * x
+        x3 = x2 * x
+        w = torch.where(x <= 1.0, (a + 2.0) * x3 - (a + 3.0) * x2 + 1.0,
+                        torch.where(x < 2.0,
+                                    a * x3 - 5.0 * a * x2 + 8.0 * a * x - 4.0 * a,
+                                    torch.zeros_like(x)))
+        idx = (i0 + t).clamp(0, in_size - 1).long()
+        mat = mat + w[..., None] * (cols == idx[..., None])
+    return mat
+
+
+def pos_embed_canvas_device(pos_embed: torch.Tensor, gh: torch.Tensor,
+                            gw: torch.Tensor, canvas_grid_hw) -> torch.Tensor:
+    """Per-image positional embeddings of a canvas batch, on the device:
+    the [G, G] table bicubic-resized to each image's true grid (gh, gw),
+    top-left in the canvas grid, zeros elsewhere (those tokens are masked).
+    An image whose grid is the table's own takes the table as it is (the
+    reference's early return, ``sod_tpu/models/vit.py:594-598``).
+
+    :param pos_embed: [1, G*G + 1, D] table; gh, gw: [B] integer grids.
+    :return: [B, 1 + Gh*Gw, D] f32.
+    """
+    gh_c, gw_c = canvas_grid_hw
+    d = pos_embed.shape[-1]
+    pos_grid = int(round((pos_embed.shape[1] - 1) ** 0.5))
+    b = gh.shape[0]
+    table = pos_embed[0, 1:].reshape(pos_grid, pos_grid, d).float()
+    mh = _dynamic_resize_matrix(pos_grid, gh_c, gh)
+    mw = _dynamic_resize_matrix(pos_grid, gw_c, gw)
+    out = torch.einsum("bHh,hwd,bWw->bHWd", mh, table, mw)
+    native = torch.zeros(gh_c, gw_c, d, device=table.device)
+    if pos_grid <= gh_c and pos_grid <= gw_c:
+        native[:pos_grid, :pos_grid] = table
+    same = ((gh == pos_grid) & (gw == pos_grid))[:, None, None, None]
+    out = torch.where(same, native, out)
+    ok = ((torch.arange(gh_c, device=gh.device) < gh[:, None])[:, :, None]
+          & (torch.arange(gw_c, device=gw.device) < gw[:, None])[:, None, :])
+    out = torch.where(ok[..., None], out, torch.zeros_like(out))
+    cls = pos_embed[0, :1].float().expand(b, 1, d)
+    return torch.cat([cls, out.reshape(b, gh_c * gw_c, d)], dim=1)

@@ -86,9 +86,9 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, key_mask=None):
         return self_attention_qkv(self.qkv, self.proj, x, self.n_heads,
-                                  use_flash=self.use_flash)
+                                  key_mask=key_mask, use_flash=self.use_flash)
 
 
 class MultiheadAttention(nn.Module):

@@ -53,8 +53,11 @@ def _block_weights(block) -> List[torch.Tensor]:
             block.mlp.fc2.weight, block.mlp.fc2.bias]
 
 
-def _check(x: torch.Tensor, block, n_heads: int, n_real: int,
-           key_mask: Optional[torch.Tensor]) -> None:
+def check_tokens(x: torch.Tensor, block, n_heads: int, n_real: int,
+                 key_mask: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` for tokens the block kernels (K1, K5) do not
+    take: [B, n_pad, D] contiguous bf16, n_pad % 128 == 0, a width and head
+    dim they are built for, 0 < n_real <= n_pad, a [B, n_pad] key mask."""
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be [B, n_pad, D] bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -85,7 +88,7 @@ def fused_vit_block(x: torch.Tensor, block, n_heads: int, n_real: int,
     :param n_real: keys at index >= n_real (padding) are excluded.
     :param key_mask: optional [B, n_pad] bool, False keys excluded too.
     """
-    _check(x, block, n_heads, n_real, key_mask)
+    check_tokens(x, block, n_heads, n_real, key_mask)
     if x.device.type == "cpu":
         return fused_vit_block_reference(x, block, n_heads, n_real,
                                          key_mask, eps)

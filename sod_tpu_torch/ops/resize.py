@@ -5,6 +5,11 @@ separable f32 matmuls; here it is ``F.interpolate`` itself, run in f32 and
 cast back to the input dtype, over the trailing two axes of any tensor.
 ``_resize_matrix`` is ``sod_tpu``'s dense interpolation matrix, rewritten
 here because ``sod_tpu.ops`` imports jax; the criterion contracts with it.
+
+``bilinear_separable`` is ``sod_tpu``'s own contraction (``_apply_separable``:
+the W axis first, then H, f32).  Evaluation thresholds upsampled masks at
+0.5 and counts pixels, so its mask upsample uses this form: ``F.interpolate``
+differs from it in the last bit at about a third of the outputs.
 """
 from __future__ import annotations
 
@@ -31,6 +36,25 @@ def interpolate_bilinear(x: torch.Tensor, out_h: int,
 def interpolate_bicubic(x: torch.Tensor, out_h: int,
                         out_w: int) -> torch.Tensor:
     return _interpolate(x, out_h, out_w, "bicubic")
+
+
+def separable(x: torch.Tensor, wh, wwt) -> torch.Tensor:
+    """Wh . (x . Wwt) over the trailing two axes of ``x`` in f32: the W
+    axis first, then H (``sod_tpu``'s ``_apply_separable`` order).
+
+    :param wh: [out_h, in_h] and ``wwt`` [in_w, out_w], numpy or tensors."""
+    wh, wwt = (torch.as_tensor(np.asarray(m, np.float32), device=x.device).contiguous()
+               for m in (wh, wwt))
+    return torch.matmul(wh, torch.matmul(x.float(), wwt))
+
+
+def bilinear_separable(x: torch.Tensor, out_h: int,
+                       out_w: int) -> torch.Tensor:
+    """Bilinear resize of the trailing two axes as ``separable`` against
+    ``_resize_matrix``'s matrices, cast back to ``x.dtype``."""
+    in_h, in_w = x.shape[-2:]
+    return separable(x, _resize_matrix(in_h, out_h, "bilinear"),
+                     _resize_matrix(in_w, out_w, "bilinear").T).to(x.dtype)
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:

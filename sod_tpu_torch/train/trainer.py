@@ -8,10 +8,13 @@ fetched once at the end of the epoch, a ``metrics.jsonl`` record and the
 ``latest_model.pt`` checkpoint.  ``resume`` restores the model, optimizer,
 iteration count and best-score trackers.
 
+After each epoch ``_evaluate`` runs the canvas ``Evaluator`` on every
+benchmark, logs the ``"iou (DUTS)"``-style metrics, keeps
+``best_model_{name}.pt`` on an IoU improvement and writes the
+``best_scores.json`` sidecar; a missing dataset is logged as skipped.
+
 Not ported here: meshes (ROADMAP item 12), the visualizer and async
-checkpoints (item 6), and evaluation: canvas evaluation is ROADMAP item 7,
-so ``_evaluate`` logs the record ``sod_tpu`` writes when it cannot
-evaluate and writes no ``best_model``.
+checkpoints (item 6).
 """
 from __future__ import annotations
 
@@ -28,12 +31,13 @@ from sod_tpu_torch.data.loader import DataLoader, collate_train
 from sod_tpu_torch.metrics.average_meter import AverageMeter
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
 from sod_tpu_torch.train.checkpoints import restore_checkpoint, save_checkpoint
+from sod_tpu_torch.train.evaluator import Evaluator
 from sod_tpu_torch.train.logging import MetricLogger
 from sod_tpu_torch.train.optim import build_optimizer
 from sod_tpu_torch.train.step import METRIC_KEYS, make_train_step
 
-EVAL_SKIPPED = ("canvas evaluation is not ported to sod_tpu_torch "
-                "(ROADMAP item 7)")
+DEFAULT_BENCHMARKS = ["ecssd", "duts", "dut_omron"]
+_PRETTY = {"duts": "DUTS", "ecssd": "ECSSD", "dut_omron": "DUT-OMRON"}
 
 
 def train_dataset(cfg: Config) -> DUTSDataset:
@@ -55,11 +59,15 @@ class Trainer:
                  dataset=None, debug: bool = False):
         """:param device: the one device to train on ("cuda", "cpu", ...).
         :param state_dict: initial weights in the reference layout; seeded
-            random weights (``random_state_dict(cfg.seed)``) otherwise."""
+            random weights (``random_state_dict(cfg.seed)``) otherwise.
+        After each epoch the Trainer evaluates ``cfg.benchmarks`` (default
+        ECSSD, DUTS-TE and DUT-OMRON)."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.mcfg = mcfg or config_from(cfg)
         self.debug = debug or cfg.debug
+        self.benchmarks = cfg.benchmarks or DEFAULT_BENCHMARKS
+        self.evaluator: Optional[Evaluator] = None
 
         self.experim_name = define_experim_name(cfg)
         self.dir_ckpt = os.path.join(cfg.dir_ckpt, self.experim_name)
@@ -157,8 +165,38 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _evaluate(self, num_epoch: int) -> Dict[str, float]:
-        """Canvas evaluation is not ported: log the skip, as ``sod_tpu``
-        does when it cannot evaluate, and keep no ``best_model``."""
-        self.logger.log({"eval_skipped": "all", "reason": EVAL_SKIPPED,
-                         "epoch": num_epoch})
-        return {}
+        """Evaluate every benchmark; keep the best model by IoU."""
+        if self.evaluator is None:
+            try:
+                self.evaluator = Evaluator(self.model, self.cfg, self.mcfg,
+                                           debug=self.debug, device=self.device)
+            except FileNotFoundError as e:
+                # no benchmark datasets on disk: skip, do not stop training
+                self.logger.log({"eval_skipped": "all", "reason": str(e)})
+                return {}
+        all_metrics: Dict[str, float] = {}
+        for name in self.benchmarks:
+            try:
+                res = self.evaluator(
+                    dataset_name=name,
+                    dir_ckpt=os.path.join(self.dir_ckpt, "eval", name,
+                                          f"{num_epoch:02d}"))
+            except FileNotFoundError as e:
+                self.logger.log({"eval_skipped": name, "reason": str(e)})
+                continue
+            pretty = _PRETTY.get(name, name)
+            all_metrics.update({f"{k} ({pretty})": v for k, v in res.items()})
+            score = res["iou"]
+            if score > self.best_scores.get(name, -1.0):
+                self.best_scores[name] = score
+                save_checkpoint(os.path.join(self.dir_ckpt, f"best_model_{name}.pt"),
+                                self.model, epoch=num_epoch, n_iters=self.n_iters_done)
+        if all_metrics:
+            self.logger.log(all_metrics, step=self.n_iters_done)
+        if self.best_scores:
+            # post-eval tracker sidecar (see resume()); atomic replace
+            fp = os.path.join(self.dir_ckpt, "best_scores.json")
+            with open(fp + ".tmp", "w") as f:
+                json.dump(self.best_scores, f)
+            os.replace(fp + ".tmp", fp)
+        return all_metrics

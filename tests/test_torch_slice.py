@@ -153,15 +153,30 @@ def test_fused_fp32_request_runs_the_unfused_blocks(weights, rng):
                            vit_apply(model.encoder, x, fused=False))
 
 
-def test_fused_bf16_request_beyond_the_guard_raises(weights, rng):
+def test_fused_bf16_request_beyond_the_guard_runs_the_gridded_kernels(weights, rng):
+    """34 x 34 patches + CLS = 1157 tokens -> n_pad 1280 > 1024: each block
+    is K5 (attention half) then K4 (MLP half), sod_tpu's gridded route (on
+    the CPU their plain versions; tests/test_torch_evaluator.py holds them
+    against the interpreted Pallas kernels)."""
+    from sod_tpu_torch.models.vit import LN_EPS, prepare_tokens
+    from sod_tpu_torch.ops.fused_attn import fused_ln_attn_infer_reference
+    from sod_tpu_torch.ops.fused_mlp import fused_ln_mlp_reference
+
     _, model = weights
     m16 = MaskFormer(TCFG)
     m16.load_state_dict(model.state_dict())
-    # 34 x 34 patches + CLS = 1157 tokens -> n_pad 1280 > 1024: sod_tpu's
-    # gridded kernels (K5/K4), not ported
-    x = torch.zeros(1, 272, 272, 3, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K5"):
-        vit_apply(m16.to(torch.bfloat16).encoder, x, fused=True)
+    enc = m16.to(torch.bfloat16).encoder
+    x = torch.from_numpy(rng.randn(1, 272, 272, 3).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        got = vit_apply(enc, x, fused=True)
+        tokens, _ = prepare_tokens(enc, x)
+        out = torch.nn.functional.pad(tokens, (0, 0, 0, 1280 - 1157))
+        for blk in enc.blocks:
+            out = fused_ln_attn_infer_reference(out, blk, 2, 1157, eps=LN_EPS)
+            out = fused_ln_mlp_reference(out, blk, eps=LN_EPS)
+        ref = enc.norm(out[:, :1157])
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 1157, 64)
+    assert torch.equal(got, ref)
 
 
 class _Cfg:
@@ -193,7 +208,7 @@ def test_config_from_maps_pallas_attention_onto_use_flash(flash):
 @pytest.mark.parametrize("key,value", [
     ("arch", "resnet50"), ("use_binary_classifier", False),
     ("learnable_pixel_decoder", True), ("quantize", "int8"),
-    ("use_fused_eval", True), ("use_fused_mlp", True), ("use_fused_train", True),
+    ("use_fused_mlp", True), ("use_fused_train", True),
     ("remat", True), ("use_copy_paste", True), ("loss_every_decoder_layer", False),
     ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
     ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
@@ -202,6 +217,13 @@ def test_config_from_refuses_settings_it_does_not_port(key, value):
     setattr(cfg, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from(cfg)
+
+
+def test_config_from_accepts_use_fused_eval():
+    """The Evaluator reads ``use_fused_eval``; the model is the same."""
+    cfg = _Cfg()
+    cfg.use_fused_eval = True
+    assert config_from(cfg) == config_from(_Cfg())
 
 
 def test_config_from_refuses_exact_accumulation():
