@@ -9,7 +9,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    from nvidia-smi; TF32 off for the plain versions;
 2. build: nvcc builds every kernel library from the checkout, in parallel
    (the fused ViT block K1, flash attention K2, the attention half K3 and
-   K5, the MLP half K4, the threshold sweep K6, the upper-bound counts K7);
+   K5, the MLP half K4, the threshold sweep K6, the upper-bound counts K7,
+   the int8 fused block K8);
 3. kernel: the fused block against its plain PyTorch version at the served
    shape (B=2, 785 tokens padded to 896, d 384, 6 heads), unmasked and
    masked, and at the other head widths it is built for; then both timed
@@ -34,7 +35,10 @@ Phases, each printed as it passes; any failure exits non-zero:
    64-image synthetic DUTS directory (RLE pseudo masks, yaml) for 2
    epochs, ``latest_model.pt``, then ``--resume`` for a third; then a
    learning check (scripts/learning_check.py's synthetic task, 300 steps,
-   lr 2e-5, warmup steps/5, monotone poly): eval IoU must exceed 0.8;
+   lr 2e-5, warmup steps/5, monotone poly): eval IoU must exceed 0.8; on
+   the weights it trained, the script's int8 eval: the IoU through the bf16
+   fused encoder (K1) and through the int8 one (K8, must exceed 0.8) and
+   the IoU of their binarised masks (must exceed 0.95);
 9. eval kernels at the eval shape (B=16, 400 px canvas: 2501 tokens,
    d 384): K5 and the K4 forward within one bf16 ulp of their plain
    versions (unmasked and masked), K6 on [16, 2, 400, 400] masks exactly
@@ -74,9 +78,30 @@ Phases, each printed as it passes; any failure exits non-zero:
    directory (192 launches of K3 and of K4 each way), and the learning
    check through the fused path: eval IoU must exceed 0.8.
 
+Run right after phase 5, beside the bf16 service of phase 4:
+
+14. K8: the int8 fused block against its plain version at the served shape
+   (B=8, 785 tokens padded to 896, d 384), unmasked and masked, and at
+   d 768 (12 heads) and d 192 (3 heads) on 200 of 256 tokens: the output
+   within two bf16 ulps, and the int8 codes of each of the four quantisers
+   that differ from the plain version's, counted; the row-quantise launch
+   alone on f32 rows (codes and scales equal) and the s8 product launch
+   alone against ``torch._int_mm`` with the same epilogue (equal; both
+   timed, a yardstick); K8 against K1 on the same block (the quantisation
+   error); K8, its plain version and K1 timed in turns at B=1 and B=8;
+15. int8 serving: the service with ``quantize: int8`` booted as phase 4's,
+   12 K8 launches per forward and none of K1, agreement with the same
+   service through the plain version and, printed, with the bf16 service on
+   the same weights (objectness correlation, binarised-mask IoU); B=1
+   latency and B=8 img/s of both services in turns; a profile of the int8
+   B=8 forward with K8's share; three ``/predict`` requests; ``python -m
+   sod_tpu_torch.cli.predict``'s ``main`` with ``--quantize int8`` over five
+   PNGs (two with one stem) in batches of 4, its files checked.
+
 The line before the last is the kernel report (JSON): each kernel's launches
-on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its FLOPs
-over the card's dense bf16 peak and its bytes over the memory rate, from
+on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
+operations over the card's dense peak for their type (bf16; s8 for K8's
+projections; f32 for K6 and K7) and its bytes over the memory rate, from
 the shapes of this run), bound_by and library_ms (one PyTorch call that
 computes the same function, timed as a yardstick only, else null).  The
 last line is ``{"ok": true, "device": {...}}``.  Needs no network and no
@@ -120,13 +145,17 @@ PATH_OBJ_TOL, PATH_MASK_MAX, PATH_MASK_MEAN = 0.005, 0.3, 0.01
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_INT8_OPS = 1979e12                 # dense s8 tensor-core products
 
 
-def roofline(flops: float, n_bytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+def roofline(flops: float, n_bytes: float, peak_flops: float = PEAK_BF16_FLOPS,
+             other_ops_ms: float = 0.0) -> dict:
     """The least time the card could take: the larger of the operations over
-    the peak rate for their type and the bytes (each input read once, each
-    output written once) over the memory rate."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, n_bytes / PEAK_BYTES * 1e3
+    the peak rate for their type (``other_ops_ms``: the time of operations of
+    a second type at their own peak, added to it) and the bytes (each input
+    read once, each output written once) over the memory rate."""
+    t_ops = flops / peak_flops * 1e3 + other_ops_ms
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -164,7 +193,7 @@ def card_check():
 
 
 LIBRARIES = ("fused_block", "flash_attention", "fused_attn", "fused_mlp",
-             "fsweep", "fused_ub")
+             "fsweep", "fused_ub", "fused_block_int8")
 
 
 def build_kernels():
@@ -229,11 +258,11 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def make_block(rng, d: int, n_heads: int, perturbed: bool):
-    """A ViT-S block on the card, weights drawn as sod_tpu's vit_init draws
-    them (N(0, 0.02) linears, zero biases, LayerNorm ones and zeros); with
-    ``perturbed``, biases and LayerNorm parameters are random too, so a
-    misplaced bias or LN parameter shows."""
+def make_block(rng, d: int, n_heads: int, perturbed: bool, dtype=None):
+    """A ViT-S block on the card (bf16 unless ``dtype``), weights drawn as
+    sod_tpu's vit_init draws them (N(0, 0.02) linears, zero biases,
+    LayerNorm ones and zeros); with ``perturbed``, biases and LayerNorm
+    parameters are random too, so a misplaced bias or LN parameter shows."""
     import torch
 
     from sod_tpu_torch.models.vit import Block, ViTConfig
@@ -252,7 +281,7 @@ def make_block(rng, d: int, n_heads: int, perturbed: bool):
             a = rng.normal(0, 0.02, shape) if perturbed else np.zeros(shape)
         sd[name] = torch.from_numpy(np.asarray(a, np.float32))
     blk.load_state_dict(sd)
-    return blk.to(device="cuda", dtype=torch.bfloat16)
+    return blk.to(device="cuda", dtype=dtype or torch.bfloat16)
 
 
 def errors(got, ref):
@@ -340,18 +369,25 @@ def kernel_check():
 
 def plain_encoder(vit, x):
     """The fused encoder path of ``vit_apply`` with the kernel's plain
-    version in place of the kernel (for the ``encoder_apply`` hook)."""
+    version in place of the kernel (for the ``encoder_apply`` hook): K8's
+    where the encoder carries quantised blocks, else K1's."""
     import torch.nn.functional as F
 
     from sod_tpu_torch.models.vit import LN_EPS, prepare_tokens
     from sod_tpu_torch.ops.fused_block import fused_vit_block_reference
+    from sod_tpu_torch.ops.fused_block_int8 import fused_vit_block_int8_reference
 
     tokens, _ = prepare_tokens(vit, x)
     n = tokens.shape[1]
     out = F.pad(tokens, (0, 0, 0, -(-n // 128) * 128 - n))
-    for blk in vit.blocks:
-        out = fused_vit_block_reference(out, blk, vit.cfg.n_heads, n,
-                                        eps=LN_EPS)
+    blocks_q = getattr(vit, "blocks_q", None)
+    for i, blk in enumerate(vit.blocks):
+        if blocks_q is not None:
+            out = fused_vit_block_int8_reference(out, blocks_q[i], vit.cfg.n_heads,
+                                                 n, eps=LN_EPS)
+        else:
+            out = fused_vit_block_reference(out, blk, vit.cfg.n_heads, n,
+                                            eps=LN_EPS)
     return vit.norm(out[:, :n])
 
 
@@ -371,6 +407,28 @@ def compare_with_plain(svc, u8, masks, objs):
     gap = np.abs(masks - np.clip(mask_p[rows, best], 0, 1))
     return (float(np.abs(objs - obj_p).max()), float(gap.max()),
             float(gap.mean()), int((obj_p.argmax(axis=1) == best).sum()))
+
+
+def host_ms(fn, iters: int) -> float:
+    """Median host-clock ms of ``fn`` followed by a synchronize."""
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    return float(np.median(ts)) * 1e3
+
+
+def plain_forward(svc, u8):
+    """``svc``'s forward with the encoder through the plain versions."""
+    import torch
+
+    with torch.inference_mode():
+        svc.model(svc.prep(torch.from_numpy(u8).cuda()), encoder_apply=plain_encoder)
 
 
 def main_path():
@@ -424,28 +482,12 @@ def main_path():
                 or mask_mean > PATH_MASK_MEAN:
             raise AssertionError(f"main path disagrees with the plain version ({name})")
 
-    def timed(fn, iters):
-        fn()
-        ts = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t)
-        return float(np.median(ts)) * 1e3
-
     one = imgs[:1]
-
-    def plain_fwd(u8):
-        with torch.inference_mode():
-            svc.model(svc.prep(torch.from_numpy(u8).cuda()),
-                      encoder_apply=plain_encoder)
-
-    lat = {"kernel B=1 ms": timed(lambda: svc.forward_u8(one), 30),
-           "plain B=1 ms": timed(lambda: plain_fwd(one), 10),
-           "model_step B=1 ms": timed(lambda: svc.model_step(imgs[0]), 30)}
-    b8 = timed(lambda: svc.forward_u8(batch), 20)
-    p8 = timed(lambda: plain_fwd(batch), 5)
+    lat = {"kernel B=1 ms": host_ms(lambda: svc.forward_u8(one), 30),
+           "plain B=1 ms": host_ms(lambda: plain_forward(svc, one), 10),
+           "model_step B=1 ms": host_ms(lambda: svc.model_step(imgs[0]), 30)}
+    b8 = host_ms(lambda: svc.forward_u8(batch), 20)
+    p8 = host_ms(lambda: plain_forward(svc, batch), 5)
     lat["kernel B=8 img/s"] = 8e3 / b8
     lat["plain B=8 img/s"] = 8e3 / p8
     print("  " + ", ".join(f"{k} {v:.3f}" for k, v in lat.items()), flush=True)
@@ -497,11 +539,16 @@ class Client:
 
 
 def requests_phase(svc, cfg):
+    predict_requests(svc, cfg, "K1")
+    phase(5, "3 /predict requests answered through the port's service")
+
+
+def predict_requests(svc, cfg, kernel: str):
+    """Three ``/predict`` requests through the web app with ``svc``; each
+    must launch ``kernel`` (a key of ``launch_counts``) once per block."""
     import base64
 
     from PIL import Image
-
-    from sod_tpu_torch.ops import fused_block as fb
 
     from sod_tpu_torch.serving.app import create_app
     from sod_tpu_torch.serving.db import Database
@@ -517,7 +564,7 @@ def requests_phase(svc, cfg):
         assert st == 200, (st, r)
         c.request("GET", r["verify_url"])
         rng = np.random.default_rng(3)
-        before = fb.launches
+        before = launch_counts()[kernel]
         for h, w in ((240, 320), (224, 224), (150, 380)):
             img = np.zeros((h, w, 3), np.uint8) + rng.integers(0, 60, (1, 1, 3), dtype=np.uint8)
             img[h // 4: 3 * h // 4, w // 3: 2 * w // 3] = rng.integers(150, 256, 3, dtype=np.uint8)
@@ -535,10 +582,10 @@ def requests_phase(svc, cfg):
                 raise AssertionError(f"/predict returned mask {mask.size}, heatmap "
                                      f"{heat.size} for a {w}x{h} image")
             print(f"  /predict {w}x{h}: 200, mask {mask.size}, {dt:.1f} ms", flush=True)
-        if fb.launches - before != 3 * svc.mcfg.vit.depth:
-            raise AssertionError(f"/predict launched the kernel "
-                                 f"{fb.launches - before} times for 3 requests")
-    phase(5, "3 /predict requests answered through the port's service")
+        n_launches = launch_counts()[kernel] - before
+        if n_launches != 3 * svc.mcfg.vit.depth:
+            raise AssertionError(f"/predict launched {kernel} {n_launches} times "
+                                 f"for 3 requests")
 
 
 # K2 vs its plain versions at the train shape (bf16 outputs of magnitude
@@ -780,12 +827,13 @@ def train_step_check():
     return times, prof
 
 
-def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step"):
+def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step", watch=None):
     """torch.profiler over ``n`` steps: device busy ms per step (sum of the
     CUDA kernels' times; one stream, so no overlap) and the idle share
     against ``step_ms``, the step's time with the profiler off (the
     profiler's own host cost stretches the profiled steps).  ``unit`` names
-    a step in the printout."""
+    a step in the printout; ``watch``: {label: substrings of kernel names}
+    whose device time is printed too and returned as ``watched``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -814,7 +862,7 @@ def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step"):
     groups = {"the port's kernels": ("flash_", "gemm_kernel", "gemm_nn_kernel",
                                      "gemm_tn_kernel", "attention_kernel", "attn_bwd_",
                                      "ln_rows_", "ln_bwd_", "reduce_partials_",
-                                     "sweep_", "ub_count"),
+                                     "quant_rows_", "sweep_", "ub_count"),
               "cuBLAS GEMMs": ("gemm", "xmma", "cutlass"), "copies and casts": ("copy",)}
     shares = {g: 0.0 for g in (*groups, "other")}
     for e in kernels:
@@ -823,7 +871,12 @@ def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step"):
         shares[g] += e.self_device_time_total / 1e3 / n
     print("  device time by kind: " + ", ".join(
         f"{g} {v:.3f} ms ({v / busy:.1%})" for g, v in shares.items()))
-    return {"busy_ms": busy, "idle_share": idle}
+    watched = {label: sum(e.self_device_time_total for e in kernels
+                          if any(k in e.key for k in keys)) / 1e3 / n
+               for label, keys in (watch or {}).items()}
+    for label, v in watched.items():
+        print(f"  {label}: {v:.3f} ms/{unit} ({v / busy:.1%} of device time)")
+    return {"busy_ms": busy, "idle_share": idle, "watched": watched}
 
 
 def write_duts(root: str, n: int, size: int) -> str:
@@ -923,21 +976,30 @@ def trainer_check():
         if last["step"] != 3 * 64 // settings["batch_size"] or last["epoch"] != 3:
             raise AssertionError(f"resume did not continue the run: {last}")
     t0 = time.perf_counter()
-    iou0, iou1 = learning_check(300, 224)
+    iou0, iou1, (iou_bf, iou_q, agree) = learning_check(300, 224, int8_eval=True)
     times["learning check"] = time.perf_counter() - t0
     print("  " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()), flush=True)
     if not iou1 > 0.8:
         raise AssertionError(f"learning check failed: eval IoU {iou1}")
+    # scripts/learning_check.py's --int8-eval bars, on the weights trained here
+    if not (iou_q > 0.8 and agree > 0.95):
+        raise AssertionError(f"int8 eval: IoU {iou_q}, agreement with bf16 {agree}")
     phase(8, f"Trainer via cli.train: 2 epochs, latest_model.pt, resume; "
-             f"learning check eval IoU {iou0:.3f} -> {iou1:.3f} in 300 steps")
+             f"learning check eval IoU {iou0:.3f} -> {iou1:.3f} in 300 steps; on "
+             f"those weights bf16-fused IoU {iou_bf:.4f}, int8-fused IoU {iou_q:.4f}, "
+             f"mask agreement {agree:.4f}")
     return launches
 
 
-def learning_check(steps: int, size: int, **switches):
+def learning_check(steps: int, size: int, int8_eval: bool = False, **switches):
     """scripts/learning_check.py on the port: the live model and loss, a
     synthetic saliency task (bright box on a dark ground, images in
     [0, 1]), lr 2e-5 with a steps/5 warmup and a monotone poly decay.
-    ``switches``: ``Config`` fields set beside them (``use_fused_train``)."""
+    ``switches``: ``Config`` fields set beside them (``use_fused_train``).
+    Returns the eval IoU before and after and, with ``int8_eval`` (the
+    script's ``--int8-eval``), on the trained weights: the IoU through the
+    bf16 fused encoder (K1), through the int8 one (K8) and the IoU of the
+    two paths' binarised masks; else None."""
     import torch
 
     from sod_tpu_torch.config import Config
@@ -969,15 +1031,16 @@ def learning_check(steps: int, size: int, **switches):
                          "gt_valid": valid,
                          "labels": rng.integers(0, 10000, 8).astype(np.int32)})
 
-    def eval_iou(bt):
+    def eval_iou(bt, fused=False, return_pred=False):
         with torch.no_grad():
-            out = model(bt["image"].to(torch.bfloat16))
+            out = model(bt["image"].to(torch.bfloat16), fused=fused)
         best = out["objectness"][:, -1, :, 0].argmax(-1)
         pred = out["mask_pred"][:, -1][torch.arange(8), best] > 0.5   # [8, s/4, s/4]
         gt = bt["gt_masks"][:, 0, 2::4, 2::4] > 0.5
         inter = (pred & gt).sum((-1, -2)).float()
         union = (pred | gt).sum((-1, -2)).float()
-        return float((inter / (union + 1e-7)).mean())
+        iou = float((inter / (union + 1e-7)).mean())
+        return (iou, pred) if return_pred else iou
 
     eval_batch = batch(np.random.default_rng(999))
     iou0 = eval_iou(eval_batch)
@@ -988,7 +1051,24 @@ def learning_check(steps: int, size: int, **switches):
         if i % 50 == 0:
             print(f"  learning check step {i}: loss {float(m['loss']):.4f} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return iou0, eval_iou(eval_batch)
+    iou1 = eval_iou(eval_batch)
+    if not int8_eval:
+        return iou0, iou1, None
+    from sod_tpu_torch.ops.fused_block_int8 import vit_quantize_int8
+
+    before = launch_counts()
+    iou_bf, m_bf = eval_iou(eval_batch, fused=True, return_pred=True)
+    vit_quantize_int8(model.encoder)            # from the trained f32 weights
+    iou_q, m_q = eval_iou(eval_batch, fused=True, return_pred=True)
+    del model.encoder.blocks_q
+    after = launch_counts()
+    depth = mcfg.vit.depth
+    if (after["K1"] - before["K1"], after["K8"] - before["K8"]) != (depth, depth):
+        raise AssertionError("the int8 eval did not run K1 then K8 once per block")
+    agree = float((m_bf & m_q).sum()) / max(float((m_bf | m_q).sum()), 1.0)
+    print(f"  int8 eval on the trained weights: bf16-fused IoU {iou_bf:.4f}, int8-fused "
+          f"IoU {iou_q:.4f}, mask agreement IoU {agree:.4f}", flush=True)
+    return iou0, iou1, (iou_bf, iou_q, agree)
 
 
 K4_FWD = {"name": "fused_ln_mlp_forward", "route": "cuda",
@@ -1200,9 +1280,11 @@ def plain_eval_kernels():
 
 def launch_counts() -> dict:
     from sod_tpu_torch.ops import flash_attention as fa
-    from sod_tpu_torch.ops import fsweep, fused_attn, fused_block, fused_mlp, fused_ub
+    from sod_tpu_torch.ops import (fsweep, fused_attn, fused_block, fused_block_int8,
+                                   fused_mlp, fused_ub)
 
-    return {"K1": fused_block.launches, "K2 fwd": fa.fwd_launches,
+    return {"K1": fused_block.launches, "K8": fused_block_int8.launches,
+            "K2 fwd": fa.fwd_launches,
             "K2 bwd": fa.bwd_launches, "K3 fwd": fused_attn.train_fwd_launches,
             "K3 bwd": fused_attn.train_bwd_launches,
             "K5": fused_attn.launches, "K4 fwd": fused_mlp.launches,
@@ -1212,9 +1294,11 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     from sod_tpu_torch.ops import flash_attention as fa
-    from sod_tpu_torch.ops import fsweep, fused_attn, fused_block, fused_mlp, fused_ub
+    from sod_tpu_torch.ops import (fsweep, fused_attn, fused_block, fused_block_int8,
+                                   fused_mlp, fused_ub)
 
-    fused_block.launches = fa.fwd_launches = fa.bwd_launches = 0
+    fused_block.launches = fused_block_int8.launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
     fused_attn.launches = fused_mlp.launches = fsweep.launches = fused_ub.launches = 0
     fused_attn.train_fwd_launches = fused_attn.train_bwd_launches = 0
     fused_mlp.bwd_launches = 0
@@ -1803,7 +1887,7 @@ def fused_trainer_check():
     if counts != want:
         raise AssertionError(f"expected {want}")
     t0 = time.perf_counter()
-    iou0, iou1 = learning_check(300, 224, use_fused_train=True)
+    iou0, iou1, _ = learning_check(300, 224, use_fused_train=True)
     print(f"  dataset {t_data:.1f} s, cli 2 epochs {t_run:.1f} s, learning check "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if not iou1 > 0.8:
@@ -1811,6 +1895,287 @@ def fused_trainer_check():
     phase(13, f"cli.train with use_fused_train: 2 epochs through K3 and K4; learning "
               f"check through the fused path eval IoU {iou0:.3f} -> {iou1:.3f} in 300 steps")
     return counts
+
+
+K8 = {"name": "fused_vit_block_int8", "route": "cuda",
+      "source": "sod_tpu_torch/csrc/fused_block_int8.cu",
+      "replaces": "sod_tpu/ops/fused_block_int8.py:129"}
+# K8 vs its plain version.  Both quantise the same f32 values except where an
+# f32 sum taken in another order (LayerNorm's mean and variance) or a bf16
+# rounding flip upstream (qkv, attention) moves a value across a .5 code
+# boundary; one flipped code moves one term of one product by one code step,
+# far below a bf16 ulp of the output.  So: the output within two bf16 ulps at
+# its magnitude, and the share of codes that differ counted per stage (the
+# first quantiser sees only LayerNorm's sum order; the later ones also every
+# flip upstream of them; first H100 run: output max_abs one ulp, 0.03125, the
+# first quantiser's share <= 7.3e-7, the later ones' <= 3.9e-4, never by more
+# than one code)
+K8_MAX_ULPS, K8_FIRST_FLIPS, K8_LATER_FLIPS, K8_MIN_CORR_K1 = 2, 1e-4, 5e-3, 0.999
+SERVE_N = 785                            # tokens of a 224 px image at patch 8
+
+
+def quantized(blk32):
+    """The int8 record of an f32 ``Block`` on the card."""
+    from sod_tpu_torch.ops.fused_block_int8 import quantize_vit_blocks
+
+    state = {f"blocks.0.{k}": v for k, v in blk32.state_dict().items()}
+    return quantize_vit_blocks(state, prefix="blocks.")[0]
+
+
+def int8_kernel_check():
+    """Phase 14: K8 against its plain version; returns the worst max_abs,
+    {B: (K8 ms, plain ms, K1 ms)} and K8's bound at B=8."""
+    import copy
+
+    import torch
+
+    from sod_tpu_torch.ops import fused_block as fb
+    from sod_tpu_torch.ops import fused_block_int8 as fq
+
+    rng = np.random.default_rng(14)
+    worst = 0.0
+
+    def tokens(b, n_pad, d):
+        return torch.from_numpy(rng.standard_normal((b, n_pad, d), np.float32)
+                                ).to(device="cuda", dtype=torch.bfloat16)
+
+    def check(name, x, bq, h, n_real, mask):
+        nonlocal worst
+        sk, sr = {}, {}
+        got = fq.fused_vit_block_int8(x, bq, h, n_real, key_mask=mask, scratch=sk)
+        torch.cuda.synchronize()
+        ref = fq.fused_vit_block_int8_reference(x, bq, h, n_real, key_mask=mask, scratch=sr)
+        max_abs, rel_l2, corr = errors(got[:, :n_real], ref[:, :n_real])
+        bound = K8_MAX_ULPS * bf16_ulp_at(ref[:, :n_real])
+        ok = bool(torch.isfinite(got).all()) and max_abs <= bound and corr > KERNEL_MIN_CORR
+        flips = []
+        for i, st in enumerate(fq.MATS):
+            dq = (sk[f"q_{st}"].int() - sr[f"q_{st}"].int()).abs()
+            share = float((dq > 0).float().mean())
+            ok = ok and share <= (K8_FIRST_FLIPS if i == 0 else K8_LATER_FLIPS)
+            flips.append(f"{st} {int((dq > 0).sum())} of {dq.numel()} ({share:.2e}, "
+                         f"by <= {int(dq.max())})")
+        print(f"  {name}: max_abs {max_abs:.6g} (bound: {K8_MAX_ULPS} bf16 ulps, {bound:.6g}) "
+              f"rel_l2 {rel_l2:.6g} corr {corr:.9f}; codes that differ: "
+              f"{'; '.join(flips)} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"K8 disagrees with its plain version ({name})")
+        worst = max(worst, max_abs)
+
+    b, n_pad, d, h = 8, 896, 384, 6
+    x = tokens(b, n_pad, d)
+    key_mask = torch.from_numpy(rng.random((b, n_pad)) > 0.3).cuda()
+    key_mask[:, 0] = True
+    with torch.inference_mode():
+        for name, perturbed, mask in (("unmasked, vit_init weights", False, None),
+                                      ("unmasked, random biases/LN", True, None),
+                                      ("masked, random biases/LN", True, key_mask)):
+            bq = quantized(make_block(rng, d, h, perturbed, torch.float32))
+            check(f"B={b} N={SERVE_N} (pad {n_pad}) d={d} {name}", x, bq, h, SERVE_N, mask)
+        # the other widths the kernel takes: ViT-B (head dim 64) and ViT-Ti, small
+        for dd, hh in ((768, 12), (192, 3)):
+            bq = quantized(make_block(rng, dd, hh, True, torch.float32))
+            check(f"B=2 N=200 (pad 256) d={dd} heads={hh} masked", tokens(2, 256, dd), bq, hh,
+                  200, key_mask[:2, :256].contiguous())
+
+        # the quantise launch alone on identical f32 rows: codes and scales equal.
+        # Rows of mixed magnitude, a zero row (the amax floor) and a row of exact
+        # .5 ties at scale 1 (round half to even)
+        hrows = rng.standard_normal((7168, 1536), np.float32) \
+            * rng.lognormal(0, 1, (7168, 1)).astype(np.float32)
+        hrows[5] = 0
+        hrows[6] = (np.arange(1536) % 250 - 125 + 0.5).astype(np.float32)
+        hrows[6, 0] = 127
+        hrows = torch.from_numpy(hrows).cuda()
+        q_k, s_k = fq.quant_rows_cuda(hrows)
+        torch.cuda.synchronize()
+        q_p, s_p = fq.quant_rows(hrows)
+        n_q, n_s = int((q_k != q_p).sum()), int((s_k != s_p[:, 0]).sum())
+        print(f"  quantise launch alone, f32 rows {tuple(hrows.shape)}: {n_q} codes and {n_s} "
+              f"scales differ from the plain quantiser (must be 0)", flush=True)
+        if n_q or n_s:
+            raise AssertionError("the row quantiser differs from its plain version")
+
+        # the product launch alone with the QKV epilogue, on the same codes: exact
+        m_rows = b * n_pad
+        qa = torch.from_numpy(rng.integers(-127, 128, (m_rows, d), dtype=np.int8)).cuda()
+        wq = torch.from_numpy(rng.integers(-127, 128, (3 * d, d), dtype=np.int8)).cuda()
+        rs, ws, bias = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+            rng.random(m_rows) * 0.05, rng.random(3 * d) * 1e-3, rng.standard_normal(3 * d)))
+        got = fq.qgemm_bias_bf16_cuda(qa, rs, wq, ws, bias)
+        torch.cuda.synchronize()
+        ref = (torch._int_mm(qa, wq.t()).float() * rs[:, None] * ws + bias).to(torch.bfloat16)
+        n_diff = int((got != ref).sum())
+        t_k = cuda_ms(lambda: fq.qgemm_bias_bf16_cuda(qa, rs, wq, ws, bias), 20)
+        t_l = cuda_ms(lambda: torch._int_mm(qa, wq.t()), 20)
+        print(f"  product launch alone, [{m_rows}, {d}] x [{d}, {3 * d}] s8 with the QKV "
+              f"epilogue: {n_diff} of {got.numel()} outputs differ from torch._int_mm + the "
+              f"same f32 epilogue (must be 0); {t_k:.4f} ms against torch._int_mm alone "
+              f"{t_l:.4f} ms (a yardstick, not a route)", flush=True)
+        if n_diff:
+            raise AssertionError("the s8 product differs from the exact integer product")
+
+        # K8 against K1 on the same block: the quantisation error
+        blk32 = make_block(rng, d, h, True, torch.float32)
+        bq, blk16 = quantized(blk32), copy.deepcopy(blk32).to(torch.bfloat16)
+        out8 = fq.fused_vit_block_int8(x, bq, h, SERVE_N)
+        out1 = fb.fused_vit_block(x, blk16, h, SERVE_N)
+        max_abs, rel_l2, corr = errors(out8[:, :SERVE_N], out1[:, :SERVE_N])
+        print(f"  K8 against K1 on the same block (the quantisation error): max_abs "
+              f"{max_abs:.6g} rel_l2 {rel_l2:.6g} corr {corr:.9f}", flush=True)
+        if not corr > K8_MIN_CORR_K1:
+            raise AssertionError("K8 does not track the bf16 block")
+
+        timings = {}
+        for bb in (1, 8):
+            xb = tokens(bb, n_pad, d)
+            k8 = lambda: fq.fused_vit_block_int8(xb, bq, h, SERVE_N)      # noqa: E731
+            k1 = lambda: fb.fused_vit_block(xb, blk16, h, SERVE_N)       # noqa: E731
+            plain = lambda: fq.fused_vit_block_int8_reference(xb, bq, h, SERVE_N)  # noqa: E731
+            # in turns on one card: plain, K8, K1, K1, K8, plain
+            t = [cuda_ms(f, 20) for f in (plain, k8, k1, k1, k8, plain)]
+            timings[bb] = ((t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2)
+            print(f"  B={bb}: K8 {timings[bb][0]:.4f} ms, its plain version "
+                  f"{timings[bb][1]:.4f} ms, K1 at the same shape {timings[bb][2]:.4f} ms "
+                  f"per block call", flush=True)
+
+    # bound at B=8 on the real tokens: the four projections at the s8 rate plus
+    # the attention's two products at the bf16 rate, against x in and out, the
+    # int8 weights and the f32 scales, biases and LayerNorm parameters
+    hidden = bq["fc1"]["q"].shape[0]
+    c = block_cost(b * SERVE_N, b, SERVE_N, d, hidden)
+    n_bytes = (2 * 2 * b * SERVE_N * d + d * (4 * d + 2 * hidden)
+               + 4 * (2 * (5 * d + hidden) + 4 * d))
+    bound = roofline(c["qkv"] + c["proj"] + 2 * c["fc"], n_bytes, PEAK_INT8_OPS,
+                     other_ops_ms=2 * c["scores"] / PEAK_BF16_FLOPS * 1e3)
+    phase(14, f"K8 matches its plain version (output within {K8_MAX_ULPS} bf16 ulps; share of "
+              f"codes that differ <= {K8_FIRST_FLIPS} at the first quantiser, <= "
+              f"{K8_LATER_FLIPS} after it); quantiser and s8 product alone exact")
+    return worst, timings, bound
+
+
+def int8_serving_check(svc16, cfg16):
+    """Phase 15: the int8 service beside the bf16 one (``svc16``, the same
+    seeded weights); returns K8's launches on the main path's run."""
+    import torch
+
+    from PIL import Image
+
+    from sod_tpu_torch.cli import predict as predict_cli
+    from sod_tpu_torch.serving.inference import SelfMaskInference
+
+    cfg = cfg16.replace(quantize="int8")
+    t0 = time.perf_counter()
+    svc = SelfMaskInference(cfg=cfg, device="cuda")
+    try:
+        rec = svc.model.encoder.blocks_q[0]
+        print(f"  int8 service up in {time.perf_counter() - t0:.1f} s (weights seed {cfg.seed}, "
+              f"{len(svc.model.encoder.blocks_q)} quantised blocks: codes "
+              f"{rec['qkv']['q'].dtype}, scales {rec['qkv']['s'].dtype}, LayerNorm "
+              f"{rec['norm1']['weight'].dtype}; micro-batching {svc.micro_batching})", flush=True)
+        rng = np.random.default_rng(15)
+        size = cfg.eval_image_size
+        imgs = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+        batch = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+
+        reset_launch_counts()
+        steps = [svc.model_step(im) for im in imgs]
+        m8, o8 = svc.forward_u8(batch)
+        m8, o8 = m8.cpu().numpy(), o8.cpu().numpy()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        depth, n_forwards = svc.mcfg.vit.depth, len(imgs) + 1
+        print(f"  launches over {n_forwards} forwards: {counts} (expected K8 "
+              f"{depth * n_forwards}, K1 none)", flush=True)
+        if counts != {"K8": depth * n_forwards}:
+            raise AssertionError(f"the int8 service launched {counts}")
+
+        mask1 = np.stack([m for m, _ in steps]).astype(np.float32) / 255.0
+        obj1 = np.stack([o for _, o in steps])
+        side = size // svc.mcfg.vit.patch_size * svc.mcfg.scale_factor
+        for m, o in steps + [(m8, o8)]:
+            if not (np.isfinite(o).all() and o.shape[-1] == svc.mcfg.n_queries
+                    and m.shape[-2:] == (side, side)):
+                raise AssertionError(f"bad output: mask {m.shape}, obj {o.shape}")
+        checks = [(f"model_step image {i}",
+                   compare_with_plain(svc, imgs[i:i + 1], mask1[i:i + 1], obj1[i:i + 1]))
+                  for i in range(len(imgs))]
+        checks.append(("forward B=8", compare_with_plain(svc, batch, m8, o8)))
+        for name, (obj_err, mask_max, mask_mean, agree) in checks:
+            print(f"  {name}: objectness max_abs {obj_err:.6g}, mask max_abs "
+                  f"{mask_max:.6g} mean_abs {mask_mean:.6g}, argmax agrees {agree}", flush=True)
+            if obj_err > PATH_OBJ_TOL or mask_max > PATH_MASK_MAX or mask_mean > PATH_MASK_MEAN:
+                raise AssertionError(f"the int8 path disagrees with its plain version ({name})")
+
+        # against the bf16 service on the same weights and images: the cost of
+        # quantisation on random weights (printed; the learning check holds the
+        # trained weights to bars)
+        m16, o16 = (t.cpu().numpy() for t in svc16.forward_u8(batch))
+        same = int((o8.argmax(1) == o16.argmax(1)).sum())
+        b8, b16 = m8 > 0.5, m16 > 0.5
+        iou = float((b8 & b16).sum()) / max(float((b8 | b16).sum()), 1.0)
+        print(f"  int8 against the bf16 service, B=8: objectness corr "
+              f"{np.corrcoef(o8.ravel(), o16.ravel())[0, 1]:.6f} max_abs "
+              f"{np.abs(o8 - o16).max():.6g}, the same query chosen for {same} of 8 images, "
+              f"binarised-mask IoU {iou:.4f}, mask mean_abs {np.abs(m8 - m16).mean():.6g}",
+              flush=True)
+
+        # in turns on one card: int8, bf16, bf16, int8
+        one = imgs[:1]
+        lat = {}
+        for tag, u8, iters in (("B=1", one, 30), ("B=8", batch, 20)):
+            t = [host_ms(lambda s=s: s.forward_u8(u8), iters) for s in (svc, svc16, svc16, svc)]
+            lat[tag] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        print(f"  forward_u8 in turns: B=1 int8 {lat['B=1'][0]:.3f} ms, bf16 "
+              f"{lat['B=1'][1]:.3f} ms; B=8 int8 {lat['B=8'][0]:.3f} ms "
+              f"({8e3 / lat['B=8'][0]:.1f} img/s), bf16 {lat['B=8'][1]:.3f} ms "
+              f"({8e3 / lat['B=8'][1]:.1f} img/s)", flush=True)
+        profile_steps(lambda _: svc.forward_u8(batch), None, 10, lat["B=8"][0],
+                      unit="forward", watch={
+                          "K8 (s8 products, row quantisers, attention)":
+                          ("qgemm_kernel", "quant_rows_kernel", "attention_kernel"),
+                          "of it the s8 products": ("qgemm_kernel",),
+                          "of it the row quantisers": ("quant_rows_kernel",)})
+
+        predict_requests(svc, cfg, "K8")
+
+        # the predict CLI over a handful of PNGs, two of them with one stem
+        with tempfile.TemporaryDirectory() as tmp:
+            sizes = {"a/im0.png": (240, 320), "a/im1.png": (224, 224), "a/im2.png": (150, 380),
+                     "b/im0.png": (200, 260), "b/im3.png": (300, 210)}
+            for rel, (hh, ww) in sizes.items():
+                os.makedirs(os.path.dirname(os.path.join(tmp, rel)), exist_ok=True)
+                img = (rng.random((hh, ww, 3)) * 60).astype(np.uint8)
+                img[hh // 4: 3 * hh // 4, ww // 3: 2 * ww // 3] += 150
+                Image.fromarray(img).save(os.path.join(tmp, rel))
+            out = os.path.join(tmp, "masks")
+            reset_launch_counts()
+            predict_cli.main(["--p_images", os.path.join(tmp, "a", "*.png"),
+                              os.path.join(tmp, "b", "*.png"), "--out", out, "--config", CONFIG,
+                              "--quantize", "int8", "--batch_size", "4", "--heatmap",
+                              "--device", "cuda"])
+            counts = {k: v for k, v in launch_counts().items() if v}
+            want = {"im0": "a/im0.png", "im1": "a/im1.png", "im2": "a/im2.png",
+                    "im0_1": "b/im0.png", "im3": "b/im3.png"}
+            names = sorted(os.listdir(out))
+            if names != sorted(f"{k}_{kind}.png" for k in want for kind in ("mask", "heatmap")):
+                raise AssertionError(f"the predict CLI wrote {names}")
+            for stem, rel in want.items():
+                hh, ww = sizes[rel]
+                mask = Image.open(os.path.join(out, f"{stem}_mask.png"))
+                heat = Image.open(os.path.join(out, f"{stem}_heatmap.png"))
+                if mask.size != (ww, hh) or mask.mode != "L" or heat.size != (ww, hh):
+                    raise AssertionError(f"{stem}: mask {mask.size} {mask.mode} for {ww}x{hh}")
+            print(f"  cli.predict --quantize int8: {len(names)} files for 5 images in batches "
+                  f"of 4, launches {counts}", flush=True)
+            if counts != {"K8": 2 * depth}:
+                raise AssertionError(f"the predict CLI launched {counts}")
+    finally:
+        svc.close()
+    phase(15, f"int8 service: {depth} K8 launches per forward, agrees with its plain version, "
+              f"B=1 {lat['B=1'][0]:.3f} ms (bf16 {lat['B=1'][1]:.3f}), B=8 "
+              f"{8e3 / lat['B=8'][0]:.1f} img/s (bf16 {8e3 / lat['B=8'][1]:.1f}); 3 /predict "
+              f"answers and the predict CLI's masks")
+    return depth * n_forwards
 
 
 def main():
@@ -1822,6 +2187,9 @@ def main():
     svc, cfg, launches = main_path()
     try:
         requests_phase(svc, cfg)
+        # beside the bf16 service while it is up
+        k8_worst, k8_times, k8_bound = int8_kernel_check()
+        k8_launches = int8_serving_check(svc, cfg)
     finally:
         svc.close()
     k2_worst, k2_times = k2_check()
@@ -1847,6 +2215,7 @@ def main():
                     **bound, library_ms=library_ms)
 
     report = [entry(KERNEL, launches, max_abs, *timings[8], k1_bound),
+              entry(K8, k8_launches, k8_worst, *k8_times[8][:2], k8_bound),
               entry(K2_FWD, k2_launches[0], k2_worst["fwd"], *k2_times["fwd"],
                     k2_bounds["fwd"], k2_times["fwd_lib"]),
               entry(K2_BWD, k2_launches[1], k2_worst["bwd"], *k2_times["bwd"],

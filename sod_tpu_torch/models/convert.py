@@ -2,12 +2,13 @@
 
 The port's modules use the reference's ``selfmask_nq20.pt`` key layout, so
 a real checkpoint loads with ``load_state_dict`` as it is, and a
-``sod_tpu`` tree goes through ``state_dict_from_jax``.  numpy only: no jax
-and no ``sod_tpu`` import.
+``sod_tpu`` tree goes through ``state_dict_from_jax`` (its int8 blocks
+through ``blocks_q_from_jax``).  numpy only: no jax and no ``sod_tpu``
+import.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -48,6 +49,21 @@ def _depth(stacked: dict) -> int:
     return int(np.asarray(leaf).shape[0])
 
 
+def vit_blocks_from_jax(blocks: dict, prefix: str) -> Dict[str, np.ndarray]:
+    """``sod_tpu``'s stacked encoder blocks -> ``{prefix}{i}.norm1.weight``
+    ... of the port's ``Block``s."""
+    out: Dict[str, np.ndarray] = {}
+    for i in range(_depth(blocks)):
+        bp, pre = _layer(blocks, i), f"{prefix}{i}."
+        _ln(out, pre + "norm1", bp["norm1"])
+        _linear(out, pre + "attn.qkv", bp["attn"]["qkv"])
+        _linear(out, pre + "attn.proj", bp["attn"]["proj"])
+        _ln(out, pre + "norm2", bp["norm2"])
+        _linear(out, pre + "mlp.fc1", bp["mlp"]["fc0"])
+        _linear(out, pre + "mlp.fc2", bp["mlp"]["fc1"])
+    return out
+
+
 def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     """A ``sod_tpu`` MaskFormer tree (numpy leaves, e.g. from
     ``jax.device_get``) -> the reference's state-dict arrays: the same
@@ -62,14 +78,7 @@ def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     out["encoder.patch_embed.proj.bias"] = np.asarray(enc["patch_embed"]["b"])
     out["encoder.cls_token"] = np.asarray(enc["cls_token"])
     out["encoder.pos_embed"] = np.asarray(enc["pos_embed"])
-    for i in range(_depth(enc["blocks"])):
-        bp, pre = _layer(enc["blocks"], i), f"encoder.blocks.{i}."
-        _ln(out, pre + "norm1", bp["norm1"])
-        _linear(out, pre + "attn.qkv", bp["attn"]["qkv"])
-        _linear(out, pre + "attn.proj", bp["attn"]["proj"])
-        _ln(out, pre + "norm2", bp["norm2"])
-        _linear(out, pre + "mlp.fc1", bp["mlp"]["fc0"])
-        _linear(out, pre + "mlp.fc2", bp["mlp"]["fc1"])
+    out.update(vit_blocks_from_jax(enc["blocks"], "encoder.blocks."))
     _ln(out, "encoder.norm", enc["norm"])
 
     dec = params["decoder"]
@@ -89,6 +98,29 @@ def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
         _linear(out, "linear_classifier", params["linear_classifier"])
         _ln(out, "norm", params["norm"])
     return out
+
+
+def blocks_q_from_jax(blocks_q: dict) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """``sod_tpu``'s quantised encoder blocks (the stacked ``blocks_q`` tree
+    of ``quantize_vit_blocks``, numpy leaves: ``q`` [L, in, out] int8, ``s``
+    [L, 1, out], ``b`` [L, out], ``norm1`` / ``norm2`` scale and bias) ->
+    the port's per-block records (``ops.fused_block_int8``): codes (out, in),
+    scales and biases [out], LayerNorm weight and bias, dtypes kept."""
+    def t(a):
+        return torch.from_numpy(np.array(a))         # a writable copy
+
+    records = []
+    for i in range(_depth(blocks_q)):
+        lp = _layer(blocks_q, i)
+        rec = {n: {"weight": t(lp[n]["scale"]), "bias": t(lp[n]["bias"])}
+               for n in ("norm1", "norm2")}
+        for ours, theirs in (("qkv", "qkv"), ("proj", "proj"),
+                             ("fc1", "fc0"), ("fc2", "fc1")):
+            m = lp[theirs]
+            rec[ours] = {"q": t(m["q"].T), "s": t(m["s"].reshape(-1)),
+                         "b": t(m["b"])}
+        records.append(rec)
+    return records
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -48,7 +48,6 @@ _LIVE_ONLY = (
      "ROADMAP item 13, the non-bc head and the Hungarian loss branch"),
     ("learnable_pixel_decoder", False,
      "ROADMAP item 13, the learnable pixel decoder"),
-    ("quantize", "none", "ROADMAP item 9, int8 serving with kernel K8"),
     ("remat", False, "ROADMAP item 6, block rematerialisation"),
     ("use_copy_paste", False, "ROADMAP item 6, copy-paste augmentation"),
     ("loss_every_decoder_layer", True,
@@ -70,7 +69,8 @@ def config_from(cfg) -> MaskFormerConfig:
     ``use_fused_mlp`` the blocks' MLP half through K4, ``use_fused_train``
     the training blocks through K3 then K4, ``fused_save_acts`` picks their
     saved-activation variants (``sod_tpu/models/maskformer.py:94-98``);
-    ``use_fused_eval`` is read by the Evaluator, not by the model."""
+    ``use_fused_eval`` is read by the Evaluator and ``quantize`` by the
+    inference service (as in ``sod_tpu``), not by the model."""
     for key, live, where in _LIVE_ONLY:
         value = getattr(cfg, key, live)
         if value != live:

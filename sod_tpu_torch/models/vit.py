@@ -18,6 +18,7 @@ from torch import nn
 from sod_tpu_torch.ops.attention import Attention
 from sod_tpu_torch.ops.fused_attn import fused_ln_attn, fused_ln_attn_infer
 from sod_tpu_torch.ops.fused_block import fused_vit_block
+from sod_tpu_torch.ops.fused_block_int8 import fused_vit_block_int8
 from sod_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from sod_tpu_torch.ops.layers import LayerNorm, Linear, linear, mlp_apply
 from sod_tpu_torch.ops.resize import interpolate_bicubic
@@ -52,6 +53,18 @@ def vit_small(patch_size: int = 8, use_flash: bool = False,
                      pos_grid=224 // patch_size, use_flash=use_flash,
                      fused_mlp=fused_mlp, fused_train=fused_train,
                      fused_save_acts=fused_save_acts)
+
+
+def vit_tiny(patch_size: int = 16, use_flash: bool = False) -> ViTConfig:
+    """deit_tiny: d 192, 3 heads, 12 blocks."""
+    return ViTConfig(patch_size=patch_size, embed_dim=192, n_heads=3,
+                     pos_grid=224 // patch_size, use_flash=use_flash)
+
+
+def vit_base(patch_size: int = 16, use_flash: bool = False) -> ViTConfig:
+    """deit_base: d 768, 12 heads, 12 blocks."""
+    return ViTConfig(patch_size=patch_size, embed_dim=768, n_heads=12,
+                     pos_grid=224 // patch_size, use_flash=use_flash)
 
 
 class Mlp(nn.Module):
@@ -188,20 +201,26 @@ def prepare_tokens(vit: VisionTransformer, x: torch.Tensor,
 def vit_apply(vit: VisionTransformer, x: torch.Tensor,
               fused: bool = False,
               token_mask: Optional[torch.Tensor] = None,
-              pos_embed_override: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+              pos_embed_override: Optional[torch.Tensor] = None,
+              all_layers: bool = False) -> torch.Tensor:
     """Encoder forward: the final-LayerNormed last-layer tokens [B, 1+N, D].
 
     :param x: [B, H, W, 3] normalized images.
     :param token_mask: [B, 1+N] bool; False tokens (canvas padding) are
         excluded as attention keys.
     :param pos_embed_override: see ``prepare_tokens``.
+    :param all_layers: return every block's final-LayerNormed tokens
+        stacked as [L, B, 1+N, D] instead (``sod_tpu``'s default; the
+        port's callers read the last layer only).
     :param fused: inference path through the fused kernels for bf16
         tokens, padded once to a multiple of 128 before the layer loop,
-        with ``sod_tpu``'s guard (``vit.py:324-389``): the whole-block
-        kernel K1 for n_pad <= 1024 and D <= 512, else the gridded K5
-        (attention half) then K4 (MLP half) per block.  An f32 request runs
-        the unfused erf-GELU blocks, as in ``sod_tpu``.
+        with ``sod_tpu``'s guard (``vit.py:323-389``): a whole-block kernel
+        for n_pad <= 1024, which is the int8 block K8 up to D 768 when the
+        encoder carries quantised blocks (``vit.blocks_q``, set by
+        ``ops.fused_block_int8.vit_quantize_int8``), else K1 up to D 512;
+        beyond either bound the gridded K5 (attention half) then K4 (MLP
+        half) per block, on the float weights.  An f32 request runs the
+        unfused erf-GELU blocks, as in ``sod_tpu``.
 
     Otherwise, under ``cfg.fused_train`` and without a token mask, every
     block runs ``fused_block_train`` (K3 then K4, differentiable); with a
@@ -210,27 +229,38 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
     """
     cfg = vit.cfg
     tokens, _ = prepare_tokens(vit, x, pos_embed_override)
+    per_layer = []
     if fused and tokens.dtype == torch.bfloat16:
         b, n, d = tokens.shape
         n_pad = -(-n // 128) * 128
         out = F.pad(tokens, (0, 0, 0, n_pad - n))
         kmask = (None if token_mask is None
                  else F.pad(token_mask, (0, n_pad - n)))
-        for blk in vit.blocks:
-            if n_pad <= 1024 and d <= 512:
+        blocks_q = getattr(vit, "blocks_q", None)
+        whole = n_pad <= 1024 and d <= (768 if blocks_q is not None else 512)
+        for i, blk in enumerate(vit.blocks):
+            if whole and blocks_q is not None:
+                out = fused_vit_block_int8(out, blocks_q[i], cfg.n_heads,
+                                           n_real=n, key_mask=kmask,
+                                           eps=LN_EPS)
+            elif whole:
                 out = fused_vit_block(out, blk, cfg.n_heads, n_real=n,
                                       key_mask=kmask, eps=LN_EPS)
             else:
                 out = fused_ln_attn_infer(out, blk, cfg.n_heads, n_real=n,
                                           key_mask=kmask, eps=LN_EPS)
                 out = fused_ln_mlp(out, blk, eps=LN_EPS)
-        return vit.norm(out[:, :n])
+            if all_layers:
+                per_layer.append(vit.norm(out[:, :n]))
+        return torch.stack(per_layer) if all_layers else vit.norm(out[:, :n])
     for blk in vit.blocks:
         if cfg.fused_train and token_mask is None:
             tokens = fused_block_train(blk, tokens, cfg)
         else:
             tokens = blk(tokens, token_mask)
-    return vit.norm(tokens)
+        if all_layers:
+            per_layer.append(vit.norm(tokens))
+    return torch.stack(per_layer) if all_layers else vit.norm(tokens)
 
 
 def _dynamic_resize_matrix(in_size: int, out_size: int,

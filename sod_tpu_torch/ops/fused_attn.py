@@ -117,29 +117,39 @@ def _forward_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
     Weights are rounded to bf16 and every product runs on f32 copies of
     bf16 values.  Rounded to bf16: LN1's output, qkv, the normalised
-    probabilities, each head's p.v, and the output x + attn.Wproj + b.
-    One head at a time, so the f32 scores of a canvas batch stay small."""
+    probabilities, each head's p.v, and the output x + attn.Wproj + b."""
     bf16 = torch.bfloat16
     ln_w, ln_b, wqkv, bqkv, wproj, bproj = (
         w.detach().to(device=x.device, dtype=bf16).float() for w in weights)
-    b, n, d = x.shape
-    hd = d // n_heads
-
     x0 = x.float()
     h = layer_norm(x0, ln_w, ln_b, eps).to(bf16).float()
     qkv = (torch.matmul(h, wqkv.t()) + bqkv).to(bf16).float()
-    key_ok = torch.arange(n, device=x.device) < n_real
+    attn = attention_plain(qkv, n_heads, n_real, key_mask)
+    out = (x0 + torch.matmul(attn, wproj.t()) + bproj).to(x.dtype)
+    return out, h, qkv, attn
+
+
+def attention_plain(qkv: torch.Tensor, n_heads: int, n_real: int,
+                    key_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-head softmax attention over packed rows qkv [B, N, 3D] (f32
+    copies of bf16 values) with the kernels' rounding points: f32 scores and
+    softmax, keys >= n_real or masked excluded, bf16(bf16(p) . v).  Returns
+    f32 copies of the bf16 output [B, N, D].  One head at a time, so the
+    f32 scores of a canvas batch stay small."""
+    bf16 = torch.bfloat16
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // n_heads
+    key_ok = torch.arange(n, device=qkv.device) < n_real
     key_ok = key_ok[None, :].expand(b, n)
     if key_mask is not None:
-        key_ok = key_ok & key_mask.to(device=x.device, dtype=torch.bool)
+        key_ok = key_ok & key_mask.to(device=qkv.device, dtype=torch.bool)
     heads = []
     for i in range(n_heads):
         q, k, v = (qkv[..., j * d + i * hd:j * d + (i + 1) * hd] for j in range(3))
         p = _probs(q, k, hd ** -0.5, key_ok)
         heads.append(torch.matmul(p.to(bf16).float(), v).to(bf16).float())
-    attn = torch.cat(heads, dim=-1)
-    out = (x0 + torch.matmul(attn, wproj.t()) + bproj).to(x.dtype)
-    return out, h, qkv, attn
+    return torch.cat(heads, dim=-1)
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, scale: float,

@@ -759,6 +759,9 @@ def main(argv=None) -> None:
     p.add_argument("--allow-default-admin", action="store_true",
                    help="enable the reference's fixed admin credentials "
                         "(dev only; otherwise set SOD_ADMIN_PASSWORD)")
+    p.add_argument("--quantize", choices=["none", "int8"], default=None,
+                   help="int8: serve the W8A8 fused encoder "
+                        "(ops/fused_block_int8)")
     args = p.parse_args(argv)
 
     from sod_tpu_torch.config import Config, load_config
@@ -766,6 +769,8 @@ def main(argv=None) -> None:
     from sod_tpu_torch.serving.web import make_threaded_server
 
     cfg = load_config(args.config) if args.config else Config()
+    if args.quantize is not None:
+        cfg = cfg.replace(quantize=args.quantize)
     app = create_app(cfg=cfg, load_model=False,
                      allow_default_admin=args.allow_default_admin)
     app.inference = SelfMaskInference(model_path=args.model, cfg=cfg,

@@ -41,7 +41,9 @@ class Database:
         if path == ":memory:":
             with _MEM_SEQ_LOCK:
                 seq = next(_MEM_SEQ)
-            self._uri = f"file:sodmem{seq}?mode=memory&cache=shared"
+            # a name of the port's own: in a process that also runs sod_tpu's
+            # app, equal names would make the two share one store
+            self._uri = f"file:sodtorchmem{seq}?mode=memory&cache=shared"
             self._anchor = sqlite3.connect(self._uri, uri=True,
                                            check_same_thread=False)
         self.initialize()

@@ -8,6 +8,8 @@ upload -> on-device ImageNet normalize -> forward with the fused encoder
 -> LANCZOS back to the original size -> jet heatmap -> base64 PNGs.
 ``MicroBatcher`` batches concurrent requests into one forward, enabled by
 the ``micro_batch`` setting (``"auto"`` measures both policies at boot).
+``Config.quantize = "int8"`` quantises the encoder blocks once at load and
+the fused encoder then runs the W8A8 block (``ops/fused_block_int8``).
 
 Imports torch, numpy and the stdlib; ``sod_tpu_torch.native`` and PIL are
 imported where the host tail uses them.
@@ -28,6 +30,7 @@ import torch
 from sod_tpu_torch.data.augment import normalize_device
 from sod_tpu_torch.models.convert import load_torch_state_dict
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+from sod_tpu_torch.ops.fused_block_int8 import quantize_vit_blocks
 
 
 def jet_colormap(x: np.ndarray) -> np.ndarray:
@@ -273,6 +276,12 @@ class SelfMaskInference(PredictPipeline):
     def __init__(self, *, cfg, device, model_path: Optional[str] = None,
                  state_dict: Optional[Dict] = None, warmup: bool = True):
         self.cfg = cfg
+        int8 = getattr(cfg, "quantize", "none") == "int8"
+        if int8 and cfg.arch != "vit_small":
+            raise ValueError(
+                "quantize='int8' targets the ViT encoder's fused "
+                "whole-block kernel (ops/fused_block_int8); the "
+                "resnet50 arch has no quantized path")
         self.mcfg = config_from(cfg)
         self.device = torch.device(device)
         self._compute = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -281,10 +290,16 @@ class SelfMaskInference(PredictPipeline):
         model = MaskFormer(self.mcfg)
         if state_dict is None:
             state_dict = self._load_state_dict(model, model_path)
-        model.load_state_dict({k: torch.as_tensor(v)
-                               for k, v in state_dict.items()})
+        state_dict = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+        model.load_state_dict(state_dict)
         # every float weight in the compute dtype, as sod_tpu casts its tree
         self.model = model.to(device=self.device, dtype=self._compute).eval()
+        if int8:
+            # from the weights as loaded, before the compute-dtype cast: the
+            # int8 codes and f32 scales, biases and LayerNorm parameters must
+            # not pass through bf16
+            self.model.encoder.blocks_q = quantize_vit_blocks(
+                state_dict, prefix="encoder.blocks.", device=self.device)
 
         self._batcher: Optional[MicroBatcher] = None
         mb = getattr(cfg, "micro_batch", False)

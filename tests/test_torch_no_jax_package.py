@@ -47,6 +47,7 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_sod_tpu():
     mods = _port_modules() + ["chip_smoke"]
     assert len(mods) > 50 and "sod_tpu_torch.serving.app" in mods
+    assert {"sod_tpu_torch.ops.fused_block_int8", "sod_tpu_torch.cli.predict"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -80,7 +81,10 @@ COPIES = {
     # differs on purpose: the docstring, and lib() with its helpers, which
     # builds from the port's sources into sod_tpu_torch/_build/
     "native/__init__.py": 0.80,
-    "serving/web.py": 1, "serving/db.py": 1, "serving/emailer.py": 1,
+    "serving/web.py": 1, "serving/emailer.py": 1,
+    # differs on purpose: the name of its shared-cache in-memory database, so
+    # that both packages' apps can live in one process (as in these tests)
+    "serving/db.py": 0.99,
     "serving/payments.py": 1, "serving/analytics.py": 1, "serving/schema.sql": 1,
     # differs on purpose: the docstring, create_app's model service (the
     # port's SelfMaskInference on `device`) and main() (the port's own: no
@@ -109,9 +113,25 @@ def test_copy_equals_its_sod_tpu_source(rel):
         end = next(i for i, ln in enumerate(src) if ln.startswith("def main"))
         routes = [ln for ln in src[:end] if "@app.route" in ln]
         assert len(routes) >= 30 and [ln for ln in dst if "@app.route" in ln] == routes
+    elif rel == "serving/db.py":
+        assert [ln for ln in difflib.ndiff(src, dst) if ln.startswith("- ")] == [
+            '-             self._uri = f"file:sodmem{seq}?mode=memory&cache=shared"']
     else:
         tail = next(i for i, ln in enumerate(src) if ln.startswith("def available"))
         assert dst[-(len(src) - tail):] == src[tail:]      # every wrapper unchanged
+
+
+def test_both_packages_in_memory_databases_are_separate():
+    """The n-th in-memory ``Database`` of each package in one process: a
+    user signed up in one must not appear in the other."""
+    from sod_tpu.serving.db import Database as JaxDatabase
+
+    ours, theirs = Database(":memory:"), JaxDatabase(":memory:")
+    assert ours._uri.split("mem")[0] != theirs._uri.split("mem")[0]
+    ours.execute("INSERT INTO user_management (Name, Email, Password) "
+                 "VALUES (%s, %s, %s)", ("u", "u@x.com", "p"))
+    assert ours.query("SELECT COUNT(*) AS n FROM user_management")[0]["n"] == 1
+    assert theirs.query("SELECT COUNT(*) AS n FROM user_management")[0]["n"] == 0
 
 
 # ------------------------------------------------------ the port's web app

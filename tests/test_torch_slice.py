@@ -207,7 +207,7 @@ def test_config_from_maps_pallas_attention_onto_use_flash(flash):
 
 @pytest.mark.parametrize("key,value", [
     ("arch", "resnet50"), ("use_binary_classifier", False),
-    ("learnable_pixel_decoder", True), ("quantize", "int8"),
+    ("learnable_pixel_decoder", True),
     ("remat", True), ("use_copy_paste", True), ("loss_every_decoder_layer", False),
     ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
     ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
@@ -237,6 +237,15 @@ def test_config_from_accepts_use_fused_eval():
     """The Evaluator reads ``use_fused_eval``; the model is the same."""
     cfg = _Cfg()
     cfg.use_fused_eval = True
+    assert config_from(cfg) == config_from(_Cfg())
+
+
+@pytest.mark.parametrize("quantize", ["int8", "none"])
+def test_config_from_leaves_quantize_to_the_service(quantize):
+    """Only ``SelfMaskInference`` reads ``quantize`` (as in ``sod_tpu``): the
+    model, and with it the Trainer and the Evaluator, is the same."""
+    cfg = _Cfg()
+    cfg.quantize = quantize
     assert config_from(cfg) == config_from(_Cfg())
 
 
