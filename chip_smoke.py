@@ -23,9 +23,13 @@ Phases, each printed as it passes; any failure exits non-zero:
 5. requests: three ``/predict`` requests through the web app with the
    port's service, masks decoded at the input size;
 6. K2: the flash attention forward (unmasked and masked) and backward
-   (dq, dk, dv) against their plain versions at the train shape (B 8,
-   6 heads, 785 tokens, head dim 64) and at head dims 32 and 128; forward
-   and backward timed against the plain versions with CUDA events;
+   (dq, dk, dv) against their plain versions at N in {1, 63, 64, 65, 129},
+   the train shape (B 8, 6 heads, 785 tokens) and the eval shape (B 16,
+   6 heads, 2501 tokens, each image's canvas grid as its key mask), each at
+   head dims 32, 64 and 128; every call run twice, equal bits required;
+   forward and backward timed against the plain versions with CUDA events
+   at the train shape, and the masked forward at the eval shape, each
+   beside ``F.scaled_dot_product_attention`` as a yardstick;
 7. train step: the live config at full width with seeded weights, one
    step through the kernels and one from the same weights and batch
    through the plain versions: loss, grad norm and update agreement, 12
@@ -132,6 +136,8 @@ K2_FWD = dict(K2, name="flash_attention_forward",
               replaces="sod_tpu/ops/flash_attention.py:54")
 K2_BWD = dict(K2, name="flash_attention_backward",
               replaces="sod_tpu/ops/flash_attention.py:145")
+K2_FWD_EVAL = dict(K2, name="flash_attention_forward_masked_eval_shape",
+                   replaces="sod_tpu/ops/flash_attention.py:70")
 # kernel vs plain version (bf16 output, unit-scale activations): two bf16
 # ulps at |x| < 8 (H100 run: max_abs 0.0156, corr 0.99999995)
 KERNEL_MAX_ABS, KERNEL_MIN_CORR = 0.0625, 0.99999
@@ -594,6 +600,26 @@ def predict_requests(svc, cfg, kernel: str):
 # forward 0.00098, dq 0.00049, dk 0.00195, dv 0.00098; rel_l2 <= 1.6e-4;
 # corr >= 0.99999999)
 K2_MAX_ABS, K2_MAX_REL_L2, K2_MIN_CORR = 0.0078125, 1e-3, 0.99999
+K2_HEAD_DIMS = (32, 64, 128)
+K2_TRAIN_SHAPE = (8, 6, 785, 64)         # the default train step's attention
+# default evaluation: B=16 on a 400 px canvas, 50 x 50 patches + CLS, each
+# image's own grid valid (a key mask per image, first key valid)
+K2_EVAL_SHAPE = (16, 6, 2501, 64)
+# phase 6's (B, H, N), each at every head dim: one key, around the 64-row
+# tile edge, two tiles and a bit, the train shape, the eval shape
+K2_SHAPES = tuple((2, 3, n) for n in (1, 63, 64, 65, 129)) + (
+    K2_TRAIN_SHAPE[:3], K2_EVAL_SHAPE[:3])
+
+
+def k2_bound(b: int, h: int, n: int, d: int, valid_keys=None) -> dict:
+    """The least time the card could take for K2 on [b, h, n, d] bf16:
+    {"fwd": roofline, "bwd": roofline}.  ``valid_keys``: unmasked keys summed
+    over the batch (default b * n).  Forward: q.k^T and p.v over the valid
+    keys (4 flops per query, key and channel), q, k, v read and o written.
+    Backward: five such products, q, k, v, do read and dq, dk, dv written."""
+    pairs = h * d * n * (b * n if valid_keys is None else valid_keys)
+    act = 2 * b * h * n * d
+    return {"fwd": roofline(4 * pairs, 4 * act), "bwd": roofline(10 * pairs, 7 * act)}
 
 
 def _k2_inputs(rng, shape):
@@ -608,10 +634,23 @@ def _k2_inputs(rng, shape):
     return q, k, v, do, mask
 
 
+def _canvas_mask(rng, b: int, n: int):
+    """The Evaluator's key mask on a square canvas of n - 1 patches: CLS,
+    then each image's own grid of 25..side patches a side."""
+    side = int(round((n - 1) ** 0.5))
+    grid = np.zeros((b, side, side), bool)
+    for i in range(b):
+        gh, gw = rng.integers(side // 2, side + 1, 2)
+        grid[i, :gh, :gw] = True
+    return np.concatenate([np.ones((b, 1), bool), grid.reshape(b, -1)], 1)
+
+
 def k2_check():
-    """Phase 6: returns the worst forward and backward max_abs and the
-    train-shape times {name: (kernel ms, plain ms)}."""
+    """Phase 6: returns the worst forward and backward max_abs, the times
+    {name: (kernel ms, plain ms)} at the train shape and, under "eval", the
+    masked forward's at the eval shape with its bound on the valid keys."""
     import torch
+    import torch.nn.functional as F
 
     from sod_tpu_torch.ops import flash_attention as fa
 
@@ -620,30 +659,44 @@ def k2_check():
 
     def check(name, kind, got, ref):
         max_abs, rel_l2, corr = errors(got, ref)
-        ok = (bool(torch.isfinite(got).all()) and max_abs <= K2_MAX_ABS
-              and rel_l2 <= K2_MAX_REL_L2 and corr > K2_MIN_CORR)
+        ok = bool(torch.isfinite(got).all()) and max_abs <= K2_MAX_ABS
+        if float(ref.float().abs().max()) > 0:
+            ok = ok and rel_l2 <= K2_MAX_REL_L2 and corr > K2_MIN_CORR
+        # else: a zero reference (dq and dk of a single key) has no relative
+        # error or correlation; max_abs holds it
         print(f"  {name}: max_abs {max_abs:.6g} rel_l2 {rel_l2:.6g} corr "
               f"{corr:.9f} -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version ({name})")
         worst[kind] = max(worst[kind], max_abs)
 
-    for shape in ((8, 6, 785, 64), (2, 4, 130, 32), (2, 2, 100, 128)):
-        q, k, v, do, mask = _k2_inputs(rng, shape)
-        scale = shape[-1] ** -0.5
-        tag = f"B{shape[0]} H{shape[1]} N{shape[2]} d{shape[3]}"
-        o, m, l = fa.flash_forward_cuda(q, k, v, scale)
-        om, _, _ = fa.flash_forward_cuda(q, k, v, scale, mask)
-        grads = fa.flash_backward_cuda(q, k, v, do, m, l, scale)
-        torch.cuda.synchronize()
-        check(f"{tag} forward", "fwd", o, fa.flash_forward_reference(q, k, v, scale))
-        check(f"{tag} forward masked", "fwd", om,
-              fa.flash_forward_reference(q, k, v, scale, mask))
-        for gname, got, ref in zip(("dq", "dk", "dv"), grads,
-                                   fa.flash_backward_reference(q, k, v, do, scale)):
-            check(f"{tag} backward {gname}", "bwd", got, ref)
+    for b, h, n in K2_SHAPES:
+        for d in K2_HEAD_DIMS:
+            q, k, v, do, mask = _k2_inputs(rng, (b, h, n, d))
+            if (b, h, n) == K2_EVAL_SHAPE[:3]:
+                mask = torch.from_numpy(_canvas_mask(rng, b, n)).cuda()
+            scale = d ** -0.5
+            tag = f"B{b} H{h} N{n} d{d}"
+            runs = []
+            for _ in range(2):
+                o, m, l = fa.flash_forward_cuda(q, k, v, scale)
+                om, _, _ = fa.flash_forward_cuda(q, k, v, scale, mask)
+                runs.append((o, m, l, om, *fa.flash_backward_cuda(q, k, v, do, m, l, scale)))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                raise AssertionError(f"K2 {tag}: two runs on the same inputs differ")
+            o, _, _, om, *grads = runs[0]
+            check(f"{tag} forward", "fwd", o, fa.flash_forward_reference(q, k, v, scale))
+            check(f"{tag} forward masked", "fwd", om,
+                  fa.flash_forward_reference(q, k, v, scale, mask))
+            ref = fa.flash_backward_reference(q, k, v, do, scale)
+            for gname, got, want in zip(("dq", "dk", "dv"), grads, ref):
+                check(f"{tag} backward {gname}", "bwd", got, want)
+            del runs, o, om, grads, ref, q, k, v, do
+    print(f"  forward, masked forward and backward ran twice at each of "
+          f"{len(K2_SHAPES) * len(K2_HEAD_DIMS)} shapes: equal bits", flush=True)
 
-    q, k, v, do, _ = _k2_inputs(rng, (8, 6, 785, 64))
+    q, k, v, do, _ = _k2_inputs(rng, K2_TRAIN_SHAPE)
     _, m, l = fa.flash_forward_cuda(q, k, v, 0.125)
     pairs = {"fwd": (lambda: fa.flash_forward_cuda(q, k, v, 0.125),
                      lambda: fa.flash_forward_reference(q, k, v, 0.125)),
@@ -659,8 +712,6 @@ def k2_check():
 
     # the library's call for the same function, as a yardstick only: nothing
     # in the port calls it
-    import torch.nn.functional as F
-
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)  # noqa: E731
     out_l = sdpa()
@@ -672,8 +723,31 @@ def k2_check():
     print(f"  F.scaled_dot_product_attention on the same tensors (yardstick): forward "
           f"{timings['fwd_lib']:.4f} ms, its autograd backward {timings['bwd_lib']:.4f} ms "
           f"(max_abs {lib_abs:.6g} to the plain forward)", flush=True)
-    phase(6, f"K2 forward and backward match their plain versions (max_abs "
-             f"<= {K2_MAX_ABS}, rel_l2 <= {K2_MAX_REL_L2}, corr > {K2_MIN_CORR})")
+    del q, k, v, do, m, l, ql, kl, vl, out_l
+
+    # the masked forward at the eval shape, as default evaluation calls it
+    b, h, n, d = K2_EVAL_SHAPE
+    q, k, v, _, _ = _k2_inputs(rng, K2_EVAL_SHAPE)
+    mask = torch.from_numpy(_canvas_mask(rng, b, n)).cuda()
+    valid = int(mask.sum())
+    attn_mask = mask[:, None, None, :]
+    kern = lambda: fa.flash_forward_cuda(q, k, v, 0.125, mask)  # noqa: E731
+    plain = lambda: fa.flash_forward_reference(q, k, v, 0.125, mask)  # noqa: E731
+    with torch.no_grad():
+        p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kern, kern, plain))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, scale=0.125), 5)
+    bound = k2_bound(b, h, n, d, valid)["fwd"]
+    timings["eval"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                       "bound": bound}
+    print(f"  masked forward at B={b} H={h} N={n} d={d}, {valid} of {b * n} keys valid: "
+          f"kernel {(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, "
+          f"F.scaled_dot_product_attention with attn_mask (yardstick) {lib:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
+    phase(6, f"K2 forward (unmasked, masked) and backward match their plain versions at "
+             f"N in {sorted({n for _, _, n in K2_SHAPES})} and head dims "
+             f"{list(K2_HEAD_DIMS)} (max_abs <= {K2_MAX_ABS}, rel_l2 <= {K2_MAX_REL_L2}, "
+             f"corr > {K2_MIN_CORR}); two runs give equal bits")
     return worst, timings
 
 
@@ -2207,8 +2281,8 @@ def main():
     act = 2 * TRAIN_B * TRAIN_N * 384
     k1_bound = roofline(c["qkv"] + 2 * c["scores"] + c["proj"] + 2 * c["fc"],
                         2 * act + c["w_attn"] + c["w_mlp"])
-    k2_bounds = {"fwd": roofline(2 * c["scores"], 4 * act),
-                 "bwd": roofline(5 * c["scores"], 7 * act)}
+    k2_bounds = k2_bound(*K2_TRAIN_SHAPE)
+    k2_eval = k2_times["eval"]
 
     def entry(kernel, n_launches, err, ms, plain_ms, bound, library_ms=None):
         return dict(kernel, launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -2220,6 +2294,9 @@ def main():
                     k2_bounds["fwd"], k2_times["fwd_lib"]),
               entry(K2_BWD, k2_launches[1], k2_worst["bwd"], *k2_times["bwd"],
                     k2_bounds["bwd"], k2_times["bwd_lib"]),
+              # the same kernel as default evaluation calls it (B=16, 2501 tokens, masked)
+              entry(K2_FWD_EVAL, default_run["K2 fwd"], k2_worst["fwd"], k2_eval["ms"],
+                    k2_eval["plain_ms"], k2_eval["bound"], k2_eval["library_ms"]),
               entry(K3_FWD, tr["K3 fwd"], *tk["K3 fwd"], tk["bound"]["K3 fwd"]),
               entry(K3_BWD, tr["K3 bwd"], *tk["K3 bwd"], tk["bound"]["K3 bwd"]),
               entry(K4_FWD, fused_run["K4 fwd"], *ev["K4"], ev["bound"]["K4"]),

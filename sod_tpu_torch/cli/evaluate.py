@@ -3,7 +3,7 @@
     python -m sod_tpu_torch.cli.evaluate --config configs/<yaml> \\
         --dataset_name {duts,ecssd,dut_omron} [--p_state_dict X.pt] \\
         [--batch_size 16] [--cost_type iou|f_measure|f_max|mae] \\
-        [--scale_factor 2] [--debug] [--device cuda]
+        [--scale_factor 2] [--debug] [--device cuda] [--gpu_id 0] [--use_gpu True]
 
 yaml -> Config, seeds, the model (weights from a ``.pt`` state dict in the
 reference layout or a checkpoint of the port's Trainer, else seeded random
@@ -29,6 +29,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "checkpoint written by the port's Trainer")
     p.add_argument("--dataset_name", "-dn", type=str, default="duts",
                    choices=["dut_omron", "duts", "ecssd"])
+    # reference-CLI parity, unused: --device names the device
+    p.add_argument("--use_gpu", type=bool, default=True)
+    p.add_argument("--gpu_id", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dir_root", type=str, default=".")
     p.add_argument("--suffix", type=str, default="")

@@ -2,6 +2,7 @@
 
     python -m sod_tpu_torch.cli.train --config configs/<yaml> \\
         [--seed N] [--suffix S] [--resume] [--p_state_dict ckpt.pt] [--device cuda]
+        [--gpu_id 0]
 
 yaml -> Config, seeds, ``Trainer`` on one device, epochs each followed by
 the canvas evaluation of the benchmarks on disk, ``--resume`` from this
@@ -26,6 +27,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("sod-tpu-torch train")
     p.add_argument("--config", "-c", type=str, required=True)
     p.add_argument("--debug", "-d", action="store_true")
+    p.add_argument("--gpu_id", type=int, default=0,
+                   help="kept for reference-CLI parity and unused; --device "
+                        "names the device")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--suffix", type=str, default=None)
     p.add_argument("--p_state_dict", type=str, default=None,
@@ -74,12 +78,7 @@ def main(argv=None) -> None:
     if args.resume:
         start_epoch = trainer.resume()
         print(f"resumed; continuing from epoch {start_epoch}")
-    for epoch in range(start_epoch, cfg.n_epochs + 1):
-        metrics = trainer._train_epoch(epoch)
-        print(f"epoch {epoch}: loss {metrics['avg_loss']:.4f}, iou "
-              f"{metrics['avg_iou']:.4f}, grad_norm "
-              f"{metrics['avg_grad_norm']:.4f}", flush=True)
-        trainer._evaluate(epoch)
+    trainer(cfg.n_epochs, start_epoch=start_epoch)
 
 
 if __name__ == "__main__":

@@ -11,17 +11,35 @@
 //   ds = p * (dp - sum_j(dp * p)) * scale (f32, scale inside),
 //   dq = bf16(bf16(ds).k), dk = bf16(ds)^T.q, dk and dv accumulated in f32
 //   over all q rows and rounded to bf16 once.
-// Every [N, N] product is tiled 64 x 64 and recomputed from q and k; no
-// atomics:
-//   dq     64 query rows.  Pass 1 over the key tiles recomputes p and dp and
-//          sums D_i = sum_j p_ij dp_ij in f32 (the Pallas kernels'
-//          sum(dp * p); rowsum(do * o) would differ, o having been rounded
-//          to bf16).  Pass 2 accumulates dq += bf16(ds).k and writes D;
-//   dk, dv 64 key rows, looping over the q tiles.  It computes the
-//          transposed tiles s^T = k.q^T and dp^T = v.do^T directly, so p^T
-//          and ds^T land row-major in shared memory and feed
-//          dv += bf16(p^T).do and dk += bf16(ds^T).q without transposed
-//          fragment loads.
+//
+// What bounds it on this card: operations, as the forward (attention.cuh,
+// whose tiles, copies and register layout this file uses).  The Pallas
+// kernel holds the [N, N] slabs of one (image, head) in VMEM and runs five
+// products; here every [N, N] product is tiled 64 x 64 and recomputed from q,
+// k and the forward's row max and sum, with no atomics and no workspace of
+// partial gradients (f32 dq partials per key tile would move ~125 MB each
+// way at the train shape), so a block owns its output rows and runs agree bit
+// for bit.  That costs nine tile products against the Pallas kernel's five:
+//   dq     64 query rows, 5 products.  Pass 1 over the key tiles recomputes
+//          s = q.k^T and dp = do.v^T and sums D_i = sum_j p_ij dp_ij in f32
+//          (the Pallas kernels' sum(dp * p); rowsum(do * o) would differ, o
+//          having been rounded to bf16).  Pass 2 recomputes both, forms
+//          bf16(ds) in the accumulators' registers and accumulates
+//          dq += bf16(ds).k from them; it writes D for the other launch;
+//   dk, dv 64 key rows, 4 products, looping over the q tiles.  It computes
+//          the transposed tiles s^T = k.q^T and dp^T = v.do^T directly, so
+//          bf16(p^T) and bf16(ds^T) are A operands in registers for
+//          dv += bf16(p^T).do and dk += bf16(ds^T).q, whose B operands are
+//          the do and q tiles read as transposed operands.
+// All products are `wgmma.mma_async` of one warpgroup.  s and dp take both
+// operands from shared memory through descriptors, the block's own tiles (q
+// and do, or k and v) loaded once and read in place; they are started
+// together and waited for once.  No score or dp tile crosses shared memory:
+// p costs one multiply-add, one `ex2` and one multiply by the row's
+// reciprocal sum on the accumulators' registers, and bf16 ds (p^T, ds^T)
+// feeds the next product from registers.  The other operand's tiles arrive
+// through a two-stage cp.async ring, one `__syncthreads()` per tile.  Four dq
+// blocks and three dk/dv blocks fit an SM at d 64.
 // Rows at or beyond `n_rows` are not in memory: they read as zeros (so
 // padded q rows carry zero do) and are never written.
 //
@@ -36,12 +54,10 @@
 
 namespace sod {
 
+// Q, dO and two stages of (K, V)
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-    return (size_t)4 * 64 * (HD + APAD) * sizeof(bf16)      // Q, dO, K, V tiles
-           + (size_t)2 * 64 * (AK + CPAD) * sizeof(float)   // S, dP per warp
-           + (size_t)64 * (AK + APAD) * sizeof(bf16)        // bf16(ds) per warp
-           + (size_t)64 * (HD + CPAD) * sizeof(float);      // dq staging
+    return TILE_ALIGN + (size_t)6 * tile_bytes<HD>();
 }
 
 // dq and D for query rows [q0, q0 + 64).  q, k, v: row 0 of this (image,
@@ -54,126 +70,122 @@ __device__ __forceinline__ void attention_bwd_dq_block(
     const float* __restrict__ m, const float* __restrict__ l, float* __restrict__ dsum,
     bf16* __restrict__ dq, size_t stride_dq, float* __restrict__ colsum, size_t stride_cs,
     int q0, int n_rows, int n_real, float scale, unsigned char* smem) {
-    constexpr int ldq = HD + APAD, lds = AK + CPAD, ldp = AK + APAD, ldo = HD + CPAD;
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* dOs = Qs + AQ * ldq;
-    bf16* Ks = dOs + AQ * ldq;
-    bf16* Vs = Ks + AK * ldq;
-    float* Ss = reinterpret_cast<float*>(Vs + AK * ldq);
-    float* DPs = Ss + 4 * 16 * lds;
-    bf16* DSs = reinterpret_cast<bf16*>(DPs + 4 * 16 * lds);
-    float* Os = reinterpret_cast<float*>(DSs + 4 * 16 * ldp);
+    constexpr uint32_t TB = tile_bytes<HD>();
+    smem = align_tiles(smem);
+    const uint32_t sQ = smem_u32(smem), sdO = sQ + TB, sK = sdO + TB, sV = sK + 2 * TB;
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* Sw = Ss + warp * 16 * lds;
-    float* DPw = DPs + warp * 16 * lds;
-    bf16* DSw = DSs + warp * 16 * ldp;
-    float* Ow = Os + warp * 16 * ldo;
-    const int r = lane >> 1, half = (lane & 1) * 32;
-    const int row = q0 + warp * 16 + r;
-    const bool row_ok = row < n_rows;
-    const float m_i = row_ok ? m[row] : 0.f;
-    const float l_i = row_ok ? l[row] : 1.f;
+    const int g = lane >> 2, t = lane & 3;
+    const int n_keys = n_real < n_rows ? n_real : n_rows;
+    const int T = (n_keys + AK - 1) / AK, J = 2 * T;     // jobs: pass 1 tiles, pass 2 tiles
 
-    load_rows<HD>(Qs, ldq, q, stride, q0, n_rows, AQ);
-    load_rows<HD>(dOs, ldq, dout, stride_do, q0, n_rows, AQ);
+    float m_i[2], il_i[2], d_i[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = q0 + warp * 16 + g + 8 * h;
+        m_i[h] = row < n_rows ? m[row] * LOG2E : 0.f;    // in ex2's units
+        il_i[h] = row < n_rows ? 1.f / l[row] : 0.f;     // p = 0 on rows not in memory
+    }
+    const float c2 = scale * LOG2E;
 
-    // this warp's 16 rows against one key tile: S = q.k^T -> Sw, dP = do.v^T -> DPw
-    auto tiles = [&]() {
-#pragma unroll
-        for (int j = 0; j < AK / 16; ++j) {
-            FragC s, dp;
-            wmma::fill_fragment(s, 0.f);
-            wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-            for (int kk = 0; kk < HD; kk += 16) {
-                FragA fa;
-                FragBt fb;
-                wmma::load_matrix_sync(fa, Qs + warp * 16 * ldq + kk, ldq);
-                wmma::load_matrix_sync(fb, Ks + j * 16 * ldq + kk, ldq);
-                wmma::mma_sync(s, fa, fb, s);
-                wmma::load_matrix_sync(fa, dOs + warp * 16 * ldq + kk, ldq);
-                wmma::load_matrix_sync(fb, Vs + j * 16 * ldq + kk, ldq);
-                wmma::mma_sync(dp, fa, fb, dp);
-            }
-            wmma::store_matrix_sync(Sw + j * 16, s, lds, wmma::mem_row_major);
-            wmma::store_matrix_sync(DPw + j * 16, dp, lds, wmma::mem_row_major);
-        }
-        __syncwarp();
-    };
-    // the forward's normalised p (f32), recomputed from its row max and sum
-    auto prob = [&](int k0, int col) {
-        const float s = k0 + col < n_real ? Sw[r * lds + col] * scale : -1e30f;
-        return row_ok ? expf(s - m_i) / l_i : 0.f;
+    auto fetch = [&](int job) {
+        const int st = job & 1, k0 = (job < T ? job : job - T) * AK;
+        load_tile<HD>(sK + st * TB, k, stride, k0, n_rows);
+        load_tile<HD>(sV + st * TB, v, stride, k0, n_rows);
+        cp_async_commit();
     };
 
-    // pass 1: D_i = sum_j p_ij dp_ij
-    float d_i = 0.f;
-    for (int k0 = 0; k0 < n_rows; k0 += AK) {
-        load_rows<HD>(Ks, ldq, k, stride, k0, n_rows, AK);
-        load_rows<HD>(Vs, ldq, v, stride, k0, n_rows, AK);
-        __syncthreads();
-        tiles();
-        for (int c = 0; c < 32; ++c) d_i += DPw[r * lds + half + c] * prob(k0, half + c);
-        __syncthreads();
-    }
-    d_i += __shfl_xor_sync(0xffffffffu, d_i, 1);
+    load_tile<HD>(sQ, q, stride, q0, n_rows);
+    load_tile<HD>(sdO, dout, stride_do, q0, n_rows);
+    fetch(0);
 
-    // pass 2: dq += bf16(p * (dp - D) * scale) . k
-    FragC acc[HD / 16];
+    float acc[HD / 8][4];
 #pragma unroll
-    for (int f = 0; f < HD / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
-    for (int k0 = 0; k0 < n_rows; k0 += AK) {
-        load_rows<HD>(Ks, ldq, k, stride, k0, n_rows, AK);
-        load_rows<HD>(Vs, ldq, v, stride, k0, n_rows, AK);
-        __syncthreads();
-        tiles();
-        for (int c = 0; c < 32; ++c) {
-            const float p = prob(k0, half + c);
-            DSw[r * ldp + half + c] = __float2bfloat16(p * (DPw[r * lds + half + c] - d_i) * scale);
+    for (int jb = 0; jb < HD / 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jb][e] = 0.f;
+
+    for (int j = 0; j < J; ++j) {
+        cp_async_wait_all();
+        __syncthreads();             // job j has landed; stage (j + 1) % 2 is free
+        if (j + 1 < J) fetch(j + 1);
+        const int st = j & 1, k0 = (j < T ? j : j - T) * AK;
+
+        // this warp's 16 rows against the key tile: s = q.k^T, dp = do.v^T
+        float s[8][4], dp[8][4];
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jb][e] = dp[jb][e] = 0.f;
+        mma_nt<HD>(s, sQ, sK + st * TB);
+        mma_nt<HD>(dp, sdO, sV + st * TB);
+        mma_wait(s);
+        mma_wait(dp);
+
+        // the forward's normalised p (f32), from its row max and sum
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                s[jb][e] = exp2_fast(fmaf(s[jb][e], c2, -m_i[e >> 1])) * il_i[e >> 1];
+        if (k0 + AK > n_real) {
+#pragma unroll
+            for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (k0 + 8 * jb + 2 * t + (e & 1) >= n_real) s[jb][e] = 0.f;
         }
-        __syncwarp();
+
+        if (j < T) {
+            // pass 1: D_i = sum_j p_ij dp_ij
 #pragma unroll
-        for (int kk = 0; kk < AK; kk += 16) {
-            FragA fds;
-            wmma::load_matrix_sync(fds, DSw + kk, ldp);
+            for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
-            for (int f = 0; f < HD / 16; ++f) {
-                FragB fk;
-                wmma::load_matrix_sync(fk, Ks + kk * ldq + f * 16, ldq);
-                wmma::mma_sync(acc[f], fds, fk, acc[f]);
+                for (int e = 0; e < 4; ++e) d_i[e >> 1] += s[jb][e] * dp[jb][e];
+            if (j == T - 1) {
+                d_i[0] = quad_sum(d_i[0]);
+                d_i[1] = quad_sum(d_i[1]);
             }
+        } else {
+            // pass 2: dq += bf16(p * (dp - D) * scale) . k
+#pragma unroll
+            for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    s[jb][e] = s[jb][e] * (dp[jb][e] - d_i[e >> 1]) * scale;
+            uint32_t ds[4][4];
+            pack_a(ds, s);
+            mma_nn<HD>(acc, ds, sK + st * TB);
+            mma_wait(acc);
         }
-        __syncthreads();
     }
 
-#pragma unroll
-    for (int f = 0; f < HD / 16; ++f)
-        wmma::store_matrix_sync(Ow + f * 16, acc[f], ldo, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) {
-        const int rr = i / HD, c = i % HD;
-        if (q0 + warp * 16 + rr < n_rows)
-            dq[(size_t)(q0 + warp * 16 + rr) * stride_dq + c] = __float2bfloat16(Ow[rr * ldo + c]);
-    }
+    // the Q tile is read no more: each warp's 16 rows of it stage its dq
+    __syncthreads();
+    store_rows<HD>(acc, smem, dq, stride_dq, q0, n_rows, warp, lane);
     if (colsum != nullptr) {
+        __syncwarp();
         for (int c = lane; c < HD; c += 32) {
-            float s = 0.f;
+            float sum = 0.f;
             for (int rr = 0; rr < 16; ++rr)
-                s += __bfloat162float(__float2bfloat16(Ow[rr * ldo + c]));
-            colsum[(size_t)(q0 / 16 + warp) * stride_cs + c] = s;
+                sum += __bfloat162float(*reinterpret_cast<const bf16*>(
+                    smem + tile_off<HD>(warp * 16 + rr, c / 8) + (c % 8) * 2));
+            colsum[(size_t)(q0 / 16 + warp) * stride_cs + c] = sum;
         }
     }
-    if ((lane & 1) == 0 && row_ok) dsum[row] = d_i;
+    if (t == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = q0 + warp * 16 + g + 8 * h;
+            if (row < n_rows) dsum[row] = d_i[h];
+        }
+    }
 }
 
+// K, V, two stages of (Q, dO) and two stages of the q tile's max, 1 / sum, D
 template <int HD>
 constexpr size_t dkdv_smem_bytes() {
-    return (size_t)4 * 64 * (HD + APAD) * sizeof(bf16)      // K, V, Q, dO tiles
-           + (size_t)3 * 64 * sizeof(float)                 // m, l, D of the q tile
-           + (size_t)2 * 64 * (AQ + CPAD) * sizeof(float)   // S^T, dP^T per warp
-           + (size_t)2 * 64 * (AQ + APAD) * sizeof(bf16)    // bf16 p^T, ds^T per warp
-           + (size_t)64 * (HD + CPAD) * sizeof(float);      // dk / dv staging
+    return TILE_ALIGN + (size_t)6 * tile_bytes<HD>() + (size_t)2 * 3 * AQ * sizeof(float);
 }
 
 // dk and dv for key rows [k0, k0 + 64); arguments as for the dq block, dk
@@ -186,117 +198,109 @@ __device__ __forceinline__ void attention_bwd_dkdv_block(
     bf16* __restrict__ dk, bf16* __restrict__ dv, size_t stride_dkv,
     float* __restrict__ colsum_k, float* __restrict__ colsum_v, size_t stride_cs,
     int k0, int n_rows, int n_real, float scale, unsigned char* smem) {
-    constexpr int ldq = HD + APAD, lds = AQ + CPAD, ldp = AQ + APAD, ldo = HD + CPAD;
-    bf16* Ks = reinterpret_cast<bf16*>(smem);
-    bf16* Vs = Ks + AK * ldq;
-    bf16* Qs = Vs + AK * ldq;
-    bf16* dOs = Qs + AQ * ldq;
-    float* Ms = reinterpret_cast<float*>(dOs + AQ * ldq);
-    float* Ls = Ms + AQ;
-    float* Ds = Ls + AQ;
-    float* Ss = Ds + AQ;
-    float* DPs = Ss + 4 * 16 * lds;
-    bf16* Ps = reinterpret_cast<bf16*>(DPs + 4 * 16 * lds);
-    bf16* DSs = Ps + 4 * 16 * ldp;
-    float* Os = reinterpret_cast<float*>(DSs + 4 * 16 * ldp);
+    constexpr uint32_t TB = tile_bytes<HD>();
+    smem = align_tiles(smem);
+    const uint32_t sK = smem_u32(smem), sV = sK + TB, sQ = sV + TB, sdO = sQ + 2 * TB;
+    float* stats = reinterpret_cast<float*>(smem + 6 * TB);      // [stage][m, 1 / l, D][64]
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* Sw = Ss + warp * 16 * lds;
-    float* DPw = DPs + warp * 16 * lds;
-    bf16* Pw = Ps + warp * 16 * ldp;
-    bf16* DSw = DSs + warp * 16 * ldp;
-    float* Ow = Os + warp * 16 * ldo;
-    const int r = lane >> 1, half = (lane & 1) * 32;
-    const bool key_ok = k0 + warp * 16 + r < n_real;
+    const int g = lane >> 2, t = lane & 3;
+    const int J = (n_rows + AQ - 1) / AQ;                // q tiles
+    const float c2 = scale * LOG2E;
+    const bool key_ok[2] = {k0 + warp * 16 + g < n_real, k0 + warp * 16 + g + 8 < n_real};
 
-    load_rows<HD>(Ks, ldq, k, stride, k0, n_rows, AK);
-    load_rows<HD>(Vs, ldq, v, stride, k0, n_rows, AK);
-
-    FragC acc_k[HD / 16], acc_v[HD / 16];
-#pragma unroll
-    for (int f = 0; f < HD / 16; ++f) {
-        wmma::fill_fragment(acc_k[f], 0.f);
-        wmma::fill_fragment(acc_v[f], 0.f);
-    }
-
-    for (int q0 = 0; q0 < n_rows; q0 += AQ) {
-        load_rows<HD>(Qs, ldq, q, stride, q0, n_rows, AQ);
-        load_rows<HD>(dOs, ldq, dout, stride_do, q0, n_rows, AQ);
-        for (int i = threadIdx.x; i < AQ; i += THREADS) {
-            const bool ok = q0 + i < n_rows;
-            Ms[i] = ok ? m[q0 + i] : 0.f;
-            Ls[i] = ok ? l[q0 + i] : 1.f;
-            Ds[i] = ok ? dsum[q0 + i] : 0.f;
+    auto fetch = [&](int job) {
+        const int st = job & 1, q0 = job * AQ;
+        load_tile<HD>(sQ + st * TB, q, stride, q0, n_rows);
+        load_tile<HD>(sdO + st * TB, dout, stride_do, q0, n_rows);
+        if (threadIdx.x < AQ) {
+            const int row = q0 + threadIdx.x;
+            const bool ok = row < n_rows;
+            float* s3 = stats + st * 3 * AQ + threadIdx.x;
+            s3[0] = ok ? m[row] * LOG2E : 0.f;           // in ex2's units
+            s3[AQ] = ok ? 1.f / l[row] : 0.f;            // p = 0 on rows not in memory
+            s3[2 * AQ] = ok ? dsum[row] : 0.f;
         }
-        __syncthreads();
-
-        // this warp's 16 keys against the q tile: S^T = k.q^T, dP^T = v.do^T
-#pragma unroll
-        for (int j = 0; j < AQ / 16; ++j) {
-            FragC s, dp;
-            wmma::fill_fragment(s, 0.f);
-            wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-            for (int kk = 0; kk < HD; kk += 16) {
-                FragA fa;
-                FragBt fb;
-                wmma::load_matrix_sync(fa, Ks + warp * 16 * ldq + kk, ldq);
-                wmma::load_matrix_sync(fb, Qs + j * 16 * ldq + kk, ldq);
-                wmma::mma_sync(s, fa, fb, s);
-                wmma::load_matrix_sync(fa, Vs + warp * 16 * ldq + kk, ldq);
-                wmma::load_matrix_sync(fb, dOs + j * 16 * ldq + kk, ldq);
-                wmma::mma_sync(dp, fa, fb, dp);
-            }
-            wmma::store_matrix_sync(Sw + j * 16, s, lds, wmma::mem_row_major);
-            wmma::store_matrix_sync(DPw + j * 16, dp, lds, wmma::mem_row_major);
-        }
-        __syncwarp();
-        for (int c = 0; c < 32; ++c) {
-            const int qi = half + c;
-            const float s = key_ok ? Sw[r * lds + qi] * scale : -1e30f;
-            const float p = q0 + qi < n_rows ? expf(s - Ms[qi]) / Ls[qi] : 0.f;
-            Pw[r * ldp + qi] = __float2bfloat16(p);
-            DSw[r * ldp + qi] = __float2bfloat16(p * (DPw[r * lds + qi] - Ds[qi]) * scale);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int kk = 0; kk < AQ; kk += 16) {
-            FragA fp, fds;
-            wmma::load_matrix_sync(fp, Pw + kk, ldp);
-            wmma::load_matrix_sync(fds, DSw + kk, ldp);
-#pragma unroll
-            for (int f = 0; f < HD / 16; ++f) {
-                FragB fb;
-                wmma::load_matrix_sync(fb, dOs + kk * ldq + f * 16, ldq);
-                wmma::mma_sync(acc_v[f], fp, fb, acc_v[f]);
-                wmma::load_matrix_sync(fb, Qs + kk * ldq + f * 16, ldq);
-                wmma::mma_sync(acc_k[f], fds, fb, acc_k[f]);
-            }
-        }
-        __syncthreads();
-    }
-
-    auto write = [&](FragC* acc, bf16* out, float* colsum) {
-#pragma unroll
-        for (int f = 0; f < HD / 16; ++f)
-            wmma::store_matrix_sync(Ow + f * 16, acc[f], ldo, wmma::mem_row_major);
-        __syncwarp();
-        for (int i = lane; i < 16 * HD; i += 32) {
-            const int rr = i / HD, c = i % HD;
-            if (k0 + warp * 16 + rr < n_rows)
-                out[(size_t)(k0 + warp * 16 + rr) * stride_dkv + c] = __float2bfloat16(Ow[rr * ldo + c]);
-        }
-        if (colsum != nullptr) {
-            for (int c = lane; c < HD; c += 32) {
-                float s = 0.f;
-                for (int rr = 0; rr < 16; ++rr) s += Ow[rr * ldo + c];
-                colsum[(size_t)(k0 / 16 + warp) * stride_cs + c] = s;
-            }
-        }
-        __syncwarp();
+        cp_async_commit();
     };
-    write(acc_v, dv, colsum_v);
-    write(acc_k, dk, colsum_k);
+
+    load_tile<HD>(sK, k, stride, k0, n_rows);
+    load_tile<HD>(sV, v, stride, k0, n_rows);
+    fetch(0);
+
+    float acc_k[HD / 8][4], acc_v[HD / 8][4];
+#pragma unroll
+    for (int jb = 0; jb < HD / 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[jb][e] = acc_v[jb][e] = 0.f;
+
+    for (int j = 0; j < J; ++j) {
+        cp_async_wait_all();
+        __syncthreads();             // job j has landed; stage (j + 1) % 2 is free
+        if (j + 1 < J) fetch(j + 1);
+        const int st = j & 1;
+        const float* s3 = stats + st * 3 * AQ;
+
+        // this warp's 16 keys against the q tile: s^T = k.q^T, dp^T = v.do^T
+        float s[8][4], dp[8][4];
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jb][e] = dp[jb][e] = 0.f;
+        mma_nt<HD>(s, sK, sQ + st * TB);
+        mma_nt<HD>(dp, sV, sdO + st * TB);
+        mma_wait(s);
+        mma_wait(dp);
+
+        // p^T into s, ds^T into dp
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+            const float2 mq = *reinterpret_cast<const float2*>(s3 + 8 * jb + 2 * t);
+            const float2 ilq = *reinterpret_cast<const float2*>(s3 + AQ + 8 * jb + 2 * t);
+            const float2 dq_ = *reinterpret_cast<const float2*>(s3 + 2 * AQ + 8 * jb + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float mm = e & 1 ? mq.y : mq.x, il = e & 1 ? ilq.y : ilq.x;
+                const float dd = e & 1 ? dq_.y : dq_.x;
+                const float p = key_ok[e >> 1] ? exp2_fast(fmaf(s[jb][e], c2, -mm)) * il : 0.f;
+                s[jb][e] = p;
+                dp[jb][e] = p * (dp[jb][e] - dd) * scale;
+            }
+        }
+        uint32_t pa[4][4];
+        pack_a(pa, s);
+        uint32_t dsa[4][4];
+        pack_a(dsa, dp);
+        mma_nn<HD>(acc_v, pa, sdO + st * TB);
+        mma_nn<HD>(acc_k, dsa, sQ + st * TB);
+        mma_wait(acc_v);
+        mma_wait(acc_k);
+    }
+
+    // the K and V tiles are read no more: each warp's 16 rows of them stage
+    // its dk and dv
+    __syncthreads();
+    auto write = [&](const float (&acc)[HD / 8][4], unsigned char* stage, bf16* out,
+                     float* colsum) {
+        store_rows<HD>(acc, stage, out, stride_dkv, k0, n_rows, warp, lane);
+        if (colsum != nullptr) {
+            // f32 sums over the warp's 16 rows: rows g and g + 8 of this
+            // lane, then over the eight lanes that share t
+#pragma unroll
+            for (int jb = 0; jb < HD / 8; ++jb)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    float sum = acc[jb][e] + acc[jb][e + 2];
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+                    if (g == 0)
+                        colsum[(size_t)(k0 / 16 + warp) * stride_cs + 8 * jb + 2 * t + e] = sum;
+                }
+        }
+    };
+    write(acc_v, smem + TB, dv, colsum_v);
+    write(acc_k, smem, dk, colsum_k);
 }
 
 }  // namespace sod

@@ -11,43 +11,44 @@
 //            dq = bf16(bf16(ds).k), dk = bf16(bf16(ds)^T.q)
 // do arrives bf16 (the Pallas wrapper casts it, flash_attention.py:198).
 //
-// What bounds it on this card: the Pallas backward keeps four f32 [N, N]
-// slabs of one (image, head) in VMEM; at N = 785 (896 padded) that is 3.2 MB
-// each against 227 KB of shared memory per block, so nothing [N, N] stays on
-// chip.  Per (image, head) the work is ~10 N^2 d flops against ~7 N d bf16
-// of traffic: compute bound on the tensor cores.  The design tiles every
-// [N, N] product into 64 x 64 tiles recomputed from q, k and the forward's
-// per-row max and sum, and needs no atomics:
-//   forward  one block per (64 q rows, image x head), the two-pass softmax
-//            of attention.cuh (shared with K1), also writing each row's max
-//            and sum (f32 [B, H, N]) as the backward's residuals;
-//   dq       one block per (64 q rows, image x head).  Pass 1 over the key
-//            tiles recomputes p and dp and sums D_i = sum_j p_ij dp_ij in f32
-//            (the Pallas kernel's sum(dp * p); rowsum(do * o) would differ,
-//            o having been rounded to bf16).  Pass 2 accumulates
-//            dq += bf16(ds).k and writes D;
+// What bounds it on this card: operations.  The Pallas backward keeps four
+// f32 [N, N] slabs of one (image, head) in VMEM; at N = 785 (896 padded) that
+// is 3.2 MB each against 227 KB of shared memory per block, so nothing
+// [N, N] stays on chip.  Per (image, head) the work is ~10 N^2 d flops
+// against ~7 N d bf16 of traffic: compute bound on the tensor cores.  The
+// design tiles every [N, N] product into 64 x 64 tiles recomputed from q, k
+// and the forward's per-row max and sum, and needs no atomics (a block owns
+// its output rows, so runs agree bit for bit).  Three launches:
+//   forward  one block per (64 q rows, image x head): the two-pass softmax
+//            of attention.cuh (shared with K1, K3, K5 and K8), also writing
+//            each row's max and sum (f32 [B, H, N]) as the backward's
+//            residuals;
+//   dq       one block per (64 q rows, image x head): pass 1 sums
+//            D_i = sum_j p_ij dp_ij, pass 2 accumulates dq += bf16(ds).k and
+//            writes D (five tile products);
 //   dk, dv   one block per (64 key rows, image x head), looping over the q
-//            tiles.  It computes the transposed tiles s^T = k.q^T and
-//            dp^T = v.do^T directly, so p^T and ds^T land row-major in
-//            shared memory and feed dv += bf16(p^T).do and
-//            dk += bf16(ds^T).q without transposed fragment loads.
-// Rows at or beyond N read as zeros (so padded q rows carry zero do) and are
-// never written; padded keys get -1e30, p = 0.  Matmuls are nvcuda::wmma
-// 16x16x16 bf16 with f32 accumulators; cp.async, TMA and wgmma are later
-// work.  The dq and dk/dv device code lives in attention_bwd.cuh, shared with
-// the K3 backward.  Shape contract (checked by the Python wrapper):
-// contiguous 16-byte aligned tensors, head dim 32, 64 or 128, any N >= 1.
+//            tiles on the transposed tiles s^T and dp^T (four tile products).
+// In all three one warpgroup owns 64 rows (a warp 16 of them); score and dp
+// tiles stay in the `wgmma.mma_async` accumulators' registers, where the
+// softmax arithmetic runs and from which bf16 p and ds feed the next product
+// as A operands; the other operand's tiles arrive through a two-stage
+// `cp.async` ring into swizzled shared memory that the tensor cores read
+// through matrix descriptors.  attention.cuh and attention_bwd.cuh (shared
+// with the K3 backward) hold the device code and say what each choice is
+// for.  Launch bounds ask for 5, 4 and 3 blocks an SM at head dims up to 64.
+// Rows at or beyond N read as zeros (so padded q rows carry zero
+// do) and are never written; padded keys get -1e30, p = 0.  Shape contract
+// (checked by the Python wrapper): contiguous 16-byte aligned tensors, head
+// dim 32, 64 or 128, any N >= 1.
 
 #include "attention_bwd.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 using namespace sod;
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 5 : 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ key_mask,
                  bf16* __restrict__ o, float* __restrict__ m, float* __restrict__ l,
@@ -64,7 +65,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dq and D for 64 query rows of one (image, head) (device code in
 // attention_bwd.cuh, shared with the K3 backward)
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
@@ -79,7 +80,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // dk and dv for 64 key rows of one (image, head)
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : 2)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ m, const float* __restrict__ l,

@@ -26,8 +26,9 @@
 //   (b) attention, one block per (64 q rows, head, image), two passes over
 //       the keys (row max and sum, then normalised p in bf16 times v)
 //   (c) proj GEMM + bias + residual -> bf16 out
-// wmma bf16 with f32 accumulation from shared memory; wgmma/TMA and a
-// one-pass attention are later work.
+// The GEMMs are wmma bf16 with f32 accumulation from shared memory (wgmma
+// and TMA for them are later work); the attention's products are wgmma on
+// register-resident score tiles (attention.cuh).
 //
 // Shape contract (checked by the Python wrapper): rows M = batch * n_pad
 // with n_pad % 128 == 0, d % 64 == 0, head dim in {32, 64, 128}, 16-byte

@@ -30,8 +30,10 @@
 //   (c) proj GEMM + bias + residual -> f32 x1
 //   (d) LN2 fused into the A load of the fc1 GEMM, + bias, tanh-GELU -> bf16
 //   (e) fc2 GEMM + bias + residual -> bf16 out
-// Every matmul is nvcuda::wmma 16x16x16 bf16 with f32 accumulators on
-// shared-memory tiles (no cuBLAS).  wgmma/TMA pipelining is later work.
+// Every GEMM is nvcuda::wmma 16x16x16 bf16 with f32 accumulators on
+// shared-memory tiles (no cuBLAS); wgmma/TMA pipelining for them is later
+// work.  The attention's products are wgmma on register-resident score tiles
+// fed by a cp.async ring (attention.cuh).
 //
 // Shape contract (checked by the Python wrapper): rows M = batch * n_pad
 // with n_pad % 128 == 0, d % 64 == 0, hidden % 64 == 0, head dim in

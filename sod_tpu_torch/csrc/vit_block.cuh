@@ -15,14 +15,17 @@
 //     stages, no atomics: runs agree bit for bit);
 //   * ln_bwd_kernel: LayerNorm backward + residual, with per-block partial
 //     column sums for the LayerNorm and bias gradients.
-// Every matmul is nvcuda::wmma 16x16x16 bf16 with f32 accumulators on
-// shared-memory tiles (no cuBLAS).
+// Every GEMM here is nvcuda::wmma 16x16x16 bf16 with f32 accumulators on
+// shared-memory tiles (no cuBLAS); the attention's products are attention.cuh's
+// (wgmma on register-resident score tiles).
 //
 // Shape contract (checked by the Python wrappers): rows M % 64 == 0,
 // N % 64 == 0, K % 32 == 0, attention rows per image % 64 == 0, head dim in
 // {32, 64, 128}, 16-byte aligned contiguous tensors.  No edge masking is
 // needed under it.
 #pragma once
+
+#include <mma.h>
 
 #include "attention.cuh"
 
@@ -31,6 +34,17 @@ namespace sod {
 using namespace nvcuda;
 
 constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int APAD = 8;               // bf16 row pad: ldm % 8 == 0, spreads banks
+constexpr int CPAD = 4;               // f32 row pad: ldm % 4 == 0
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+
+__device__ __forceinline__ void copy16(bf16* dst, const bf16* src) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
 
 // Epilogues: v = the f32 accumulator, b = bias (bf16), res = residual.
 //   BIAS_BF16: bf16(v + b)                  GELU_BF16: bf16(tanh-GELU(v + b))

@@ -1,5 +1,15 @@
 """Dataset factory of the port (twin of ``sod_tpu/data/factory.py``
-``get_dataset``) for the benchmarks it evaluates and the DUTS train split."""
+``get_dataset``) for the benchmarks it evaluates and the DUTS train split.
+
+Errors: the names the reference factory mentions without a class
+(cub2011, flowers102, hku_is, sod, imagenet1k) raise ``NotImplementedError``
+with ``sod_tpu``'s message and any other unknown name ``ValueError``, as in
+``sod_tpu``.  Two differ from ``sod_tpu`` on purpose: a split a dataset does
+not have raises ``ValueError`` (an ``assert`` there), and a benchmark
+directory whose images and masks do not pair up raises ``FileNotFoundError``
+from the dataset class (an ``assert`` there); the Trainer catches the latter,
+and the Evaluator's own for an empty or missing directory, to log a skipped
+benchmark."""
 from __future__ import annotations
 
 import os
@@ -38,6 +48,11 @@ def get_dataset(dir_dataset: str, dataset_name: str, mode: str,
             root = (quirk if os.path.isdir(quirk) or not os.path.isdir(official)
                     else official)
             ds = DUTOMRONDataset(root, img_size=eval_img_size or 128)
+    elif dataset_name in ("cub2011", "flowers102", "hku_is", "sod", "imagenet1k"):
+        raise NotImplementedError(
+            f"{dataset_name}: named by the reference factory "
+            "(utils/misc.py:58-145) but its dataset class is absent from the "
+            "reference repo")
     else:
         raise ValueError(f"Invalid dataset_name {dataset_name}.")
     ds.set_mode(mode)

@@ -6,14 +6,23 @@ with an optional [B, N] key mask, as a ``torch.autograd.Function``.  The
 kernels are ``sod_tpu_torch/csrc/flash_attention.cu`` (its header says how
 they are laid out on the card):
 
-* forward: ``_fwd_kernel`` / ``_fwd_kernel_masked``'s math; it also keeps
-  each row's softmax max and sum (f32 [B, H, N]) for the backward;
-* backward without a key mask: ``_bwd_kernel``'s math, tiled (a dq launch,
-  then a dk/dv launch);
+* forward, one launch: ``_fwd_kernel`` / ``_fwd_kernel_masked``'s math
+  (two passes over the keys, so p is rounded after normalising); it also
+  keeps each row's softmax max and sum (f32 [B, H, N]) for the backward;
+* backward without a key mask, two launches per call: ``_bwd_kernel``'s
+  math, tiled (a dq launch that also writes D = sum(p * dp), then a dk/dv
+  launch); ``bwd_launches`` counts calls, not launches;
 * backward with a key mask: ``sod_tpu`` has no kernel there and runs XLA
   (``_bwd``, ``flash_attention.py:262-286``); the port runs the plain twin
   of that branch, ``flash_backward_masked_reference``.  Training never has
   a key mask.
+
+All three launches keep their 64 x 64 score tiles in the tensor cores'
+accumulator registers (``wgmma``), do the softmax arithmetic there and feed
+bf16 p and ds to the next product from registers; K, V (backward: Q, dO)
+tiles arrive through a two-stage ``cp.async`` ring.  No atomics: two calls
+on the same inputs give equal bits.  ``scale`` must be positive (the row max
+is taken before scaling).
 
 For a CUDA tensor the wrappers launch the kernels or raise (build, launch
 return code, shapes); the plain versions ``flash_forward_reference`` and
@@ -31,7 +40,7 @@ import torch
 HEAD_DIMS = (32, 64, 128)      # head widths the CUDA kernels are built for
 
 fwd_launches = 0               # forward kernel launches
-bwd_launches = 0               # backward launches (dq + dk/dv pair each)
+bwd_launches = 0               # backward calls (each a dq and a dk/dv launch)
 _launch_lock = threading.Lock()
 
 
@@ -95,6 +104,8 @@ def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the forward kernel: (o, row max, row sum)."""
     _check(q, k, v, key_mask)
     _check_cuda(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
     b, h, n, d = q.shape
     mask = (None if key_mask is None
             else key_mask.to(device=q.device, dtype=torch.uint8).contiguous())

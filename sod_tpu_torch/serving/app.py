@@ -10,8 +10,8 @@ per handler).
 Twin of ``sod_tpu/serving/app.py``: ``create_app`` and its routes are that
 file's, with the model service built from the port's
 ``SelfMaskInference`` on ``device``.  ``main`` is the port's own
-(``python -m sod_tpu_torch.serving.app --port 5000``); the worker pool of
-the original's ``main`` is not ported.
+(``python -m sod_tpu_torch.serving.app --port 5000 [--no-model]``); the
+worker pool of the original's ``main`` is not ported.
 """
 from __future__ import annotations
 
@@ -756,6 +756,10 @@ def main(argv=None) -> None:
                         "default: seeded random weights")
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--no-model", action="store_true",
+                   help="serve the web app without building the model "
+                        "service (/predict then answers that no model is "
+                        "loaded)")
     p.add_argument("--allow-default-admin", action="store_true",
                    help="enable the reference's fixed admin credentials "
                         "(dev only; otherwise set SOD_ADMIN_PASSWORD)")
@@ -765,7 +769,6 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     from sod_tpu_torch.config import Config, load_config
-    from sod_tpu_torch.serving.inference import SelfMaskInference
     from sod_tpu_torch.serving.web import make_threaded_server
 
     cfg = load_config(args.config) if args.config else Config()
@@ -773,8 +776,11 @@ def main(argv=None) -> None:
         cfg = cfg.replace(quantize=args.quantize)
     app = create_app(cfg=cfg, load_model=False,
                      allow_default_admin=args.allow_default_admin)
-    app.inference = SelfMaskInference(model_path=args.model, cfg=cfg,
-                                      device=args.device)
+    if not args.no_model:
+        from sod_tpu_torch.serving.inference import SelfMaskInference
+
+        app.inference = SelfMaskInference(model_path=args.model, cfg=cfg,
+                                          device=args.device)
     print(f"serving on http://0.0.0.0:{args.port}", flush=True)
     make_threaded_server("0.0.0.0", args.port, app).serve_forever()
 

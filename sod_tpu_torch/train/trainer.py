@@ -8,7 +8,8 @@ fetched once at the end of the epoch, a ``metrics.jsonl`` record and the
 ``latest_model.pt`` checkpoint.  ``resume`` restores the model, optimizer,
 iteration count and best-score trackers.
 
-After each epoch ``_evaluate`` runs the canvas ``Evaluator`` on every
+``Trainer(...)(n_epochs)`` trains and evaluates epoch by epoch.  After each
+epoch ``_evaluate`` runs the canvas ``Evaluator`` on every
 benchmark, logs the ``"iou (DUTS)"``-style metrics, keeps
 ``best_model_{name}.pt`` on an IoU improvement and writes the
 ``best_scores.json`` sidecar; a missing dataset is logged as skipped.
@@ -56,10 +57,15 @@ def train_dataset(cfg: Config) -> DUTSDataset:
 
 class Trainer:
     def __init__(self, cfg: Config, device, state_dict=None, mcfg=None,
-                 dataset=None, debug: bool = False):
+                 dataset=None, evaluator: Optional[Evaluator] = None,
+                 debug: bool = False):
         """:param device: the one device to train on ("cuda", "cpu", ...).
         :param state_dict: initial weights in the reference layout; seeded
             random weights (``random_state_dict(cfg.seed)``) otherwise.
+        :param evaluator: an ``Evaluator`` to use after each epoch instead of
+            building one; it is handed the Trainer's model (the current
+            weights) before every evaluation, as ``sod_tpu``'s Trainer hands
+            an injected evaluator its ``params``.
         After each epoch the Trainer evaluates ``cfg.benchmarks`` (default
         ECSSD, DUTS-TE and DUT-OMRON)."""
         self.cfg = cfg
@@ -67,7 +73,7 @@ class Trainer:
         self.mcfg = mcfg or config_from(cfg)
         self.debug = debug or cfg.debug
         self.benchmarks = cfg.benchmarks or DEFAULT_BENCHMARKS
-        self.evaluator: Optional[Evaluator] = None
+        self.evaluator = evaluator
 
         self.experim_name = define_experim_name(cfg)
         self.dir_ckpt = os.path.join(cfg.dir_ckpt, self.experim_name)
@@ -174,6 +180,7 @@ class Trainer:
                 # no benchmark datasets on disk: skip, do not stop training
                 self.logger.log({"eval_skipped": "all", "reason": str(e)})
                 return {}
+        self.evaluator.model = self.model        # the current weights
         all_metrics: Dict[str, float] = {}
         for name in self.benchmarks:
             try:
@@ -200,3 +207,18 @@ class Trainer:
                 json.dump(self.best_scores, f)
             os.replace(fp + ".tmp", fp)
         return all_metrics
+
+    # ------------------------------------------------------------------
+    def __call__(self, n_epochs: Optional[int] = None, device=None,
+                 start_epoch: int = 1) -> None:
+        """Train then evaluate, once per epoch up to ``n_epochs`` (default
+        ``cfg.n_epochs``), as ``sod_tpu``'s ``Trainer.__call__``.  ``device``
+        is accepted for that signature and unused: the Trainer's device is
+        its constructor's.  ``start_epoch`` is what ``resume()`` returned."""
+        n_epochs = n_epochs or self.cfg.n_epochs
+        for epoch in range(start_epoch, n_epochs + 1):
+            metrics = self._train_epoch(epoch)
+            print(f"epoch {epoch}: loss {metrics['avg_loss']:.4f}, iou "
+                  f"{metrics['avg_iou']:.4f}, grad_norm "
+                  f"{metrics['avg_grad_norm']:.4f}", flush=True)
+            self._evaluate(epoch)
