@@ -13,8 +13,15 @@ Phases, each printed as it passes; any failure exits non-zero:
    the int8 fused block K8);
 3. kernel: the fused block against its plain PyTorch version at the served
    shape (B=2, 785 tokens padded to 896, d 384, 6 heads), unmasked and
-   masked, and at the other head widths it is built for; then both timed
-   with CUDA events at B=1 and B=8;
+   masked, and on 200 of 256 tokens at d 128, 256, 768 and 1024 (head dims
+   32, 128, 64, 64); then both timed eagerly with CUDA events at B=1 and
+   B=8, as serving calls them (the kernel chain also from a CUDA graph, its
+   device time alone).  Then its GEMM alone: each of the four forward forms
+   of ``gemm_kernel`` (LN + bias, residual -> f32, LN of f32 rows + GELU,
+   residual -> bf16) at 896, 7168, 6336 and 40960 rows against its plain
+   version (and two runs bit for bit), timed in turns with it and with
+   ``torch.matmul`` on the same bf16 operands, all three from CUDA graphs,
+   with TFLOP/s, the share of 989 TFLOP/s and the bound;
 4. main path: the port's inference service at the full width of the
    shipped config (ViT-S/8 at 224 px, 6 decoder layers, 20 queries, bf16)
    with seeded random weights: ``model_step`` on 4 images and one B=8
@@ -245,6 +252,8 @@ def ptxas_report(log_path: str):
                 frame = ln.strip()
             elif "Used" in ln:
                 lines.append(f"  {name}: {ln.split(':', 1)[1].strip()}; {frame}")
+            elif "wgmma" in ln:       # e.g. products serialised by ptxas
+                lines.append(f"  ptxas: {ln.strip()}")
     return lines
 
 
@@ -312,6 +321,37 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Device ms of ``fn`` from CUDA events around replays of a CUDA graph
+    holding ``iters`` calls: the host's launch cost, which exceeds the
+    device time of a small kernel, is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm up (and build) off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+# the fused block's widths beyond the served one (d, heads), each masked on
+# 200 of 256 tokens: head dims 32 and 128, and the LN panel's extremes
+K1_WIDTHS = ((128, 4), (256, 2), (768, 12), (1024, 16))
+
+
 def kernel_check():
     import torch
 
@@ -341,20 +381,21 @@ def kernel_check():
                 raise AssertionError(f"kernel disagrees with its plain version ({name})")
             worst = max(worst, max_abs)
 
-        # the other head widths the kernel is built for (32, 128), small
-        for dd, hh in ((128, 4), (256, 2)):
+        # the other head widths the kernel is built for (32, 128) and the
+        # widths at the LN panel's extremes, 200 of 256 tokens
+        for dd, hh in K1_WIDTHS:
             blk = make_block(rng, dd, hh, True)
-            xs = torch.from_numpy(rng.standard_normal((2, 128, dd), np.float32)
+            xs = torch.from_numpy(rng.standard_normal((2, 256, dd), np.float32)
                                   ).to(device="cuda", dtype=torch.bfloat16)
-            ks = key_mask[:, :128].contiguous()
-            got = fb.fused_vit_block(xs, blk, hh, 100, key_mask=ks)
+            ks = key_mask[:, :256].contiguous()
+            got = fb.fused_vit_block(xs, blk, hh, 200, key_mask=ks)
             torch.cuda.synchronize()
-            ref = fb.fused_vit_block_reference(xs, blk, hh, 100, key_mask=ks)
-            max_abs, rel_l2, corr = errors(got[:, :100], ref[:, :100])
-            print(f"  head dim {dd // hh}, masked: max_abs {max_abs:.6g} rel_l2 "
+            ref = fb.fused_vit_block_reference(xs, blk, hh, 200, key_mask=ks)
+            max_abs, rel_l2, corr = errors(got[:, :200], ref[:, :200])
+            print(f"  d {dd}, head dim {dd // hh}, masked: max_abs {max_abs:.6g} rel_l2 "
                   f"{rel_l2:.6g} corr {corr:.9f}", flush=True)
             if not (max_abs <= KERNEL_MAX_ABS and corr > KERNEL_MIN_CORR):
-                raise AssertionError(f"kernel disagrees at head dim {dd // hh}")
+                raise AssertionError(f"kernel disagrees at d {dd}, head dim {dd // hh}")
 
         timings = {}
         blk = make_block(rng, d, h, True)
@@ -363,14 +404,118 @@ def kernel_check():
                                   ).to(device="cuda", dtype=torch.bfloat16)
             kern = lambda: fb.fused_vit_block(xb, blk, h, n_real)
             plain = lambda: fb.fused_vit_block_reference(xb, blk, h, n_real)
-            # in turns on one card: plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
-            timings[bb] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"  B={bb}: kernel {timings[bb][0]:.4f} ms, plain "
-                  f"{timings[bb][1]:.4f} ms per block call", flush=True)
+            # in turns on one card: plain, kernel, kernel graph, kernel graph,
+            # kernel, plain.  Kernel and plain are both eager, as serving
+            # calls them (the host's launches included); the graph time is
+            # the chain's device time alone, printed beside it
+            p1, k1, g1, g2, k2, p2 = (cuda_ms(plain, 20), cuda_ms(kern, 20), graph_ms(kern),
+                                      graph_ms(kern), cuda_ms(kern, 20), cuda_ms(plain, 20))
+            timings[bb] = ((k1 + k2) / 2, (p1 + p2) / 2, (g1 + g2) / 2)
+            print(f"  B={bb}: kernel {timings[bb][0]:.4f} ms (from a CUDA graph "
+                  f"{timings[bb][2]:.4f} ms), plain {timings[bb][1]:.4f} ms per block call",
+                  flush=True)
     phase(3, f"fused block matches its plain version (max_abs <= "
              f"{KERNEL_MAX_ABS}, corr > {KERNEL_MIN_CORR})")
     return worst, timings
+
+
+GEMM = {"route": "cuda", "source": "sod_tpu_torch/csrc/vit_block.cuh",
+        "replaces": "sod_tpu/ops/fused_block.py:42"}
+# The four forward forms of gemm_kernel as K1 calls them at d 384, hidden
+# 1536: (name, epilogue, LayerNorm, a's dtype, res's dtype, N, K)
+GEMM_FORMS = (("qkv", "bias_bf16", True, "bfloat16", None, 1152, 384),
+              ("proj", "res_f32", False, "bfloat16", "bfloat16", 384, 384),
+              ("fc1", "gelu_bf16", True, "float32", None, 1536, 384),
+              ("fc2", "res_bf16", False, "bfloat16", "float32", 384, 1536))
+# rows: K1 at B=1 and B=8 (896 tokens a served image), K4 at the fused
+# train step (6280 rows padded to 6336) and at fused eval (B=16 x 2560)
+GEMM_ROWS = (896, 7168, 6336, 40960)
+GEMM_REPORT_ROWS = 7168                  # the kernel line's GEMM entries: K1 at B=8
+# kernel vs plain version: bf16 outputs within one bf16 ulp at the output's
+# magnitude (the rounding points are the plain version's; f32 sums in
+# another order flip single roundings), f32 outputs within 1e-5 of it
+GEMM_F32_REL = 1e-5
+
+
+def gemm_bound(m: int, n: int, k: int, epilogue: str, ln: bool, a_bytes: int,
+               res_bytes: int) -> dict:
+    """The least time the card could take for one GEMM form: 2 m n k
+    products at the bf16 peak, against a (m x k of ``a_bytes``), W (n x k
+    bf16), the bias, the LN parameters, the residual and the output, each
+    moved once."""
+    out_bytes = 4 if epilogue == "res_f32" else 2
+    n_bytes = (m * k * a_bytes + 2 * n * k + 2 * n + (4 * k if ln else 0)
+               + m * n * (res_bytes + out_bytes))
+    return roofline(2.0 * m * n * k, n_bytes)
+
+
+def gemm_check():
+    """Phase 3, GEMMs: each forward form of gemm_kernel at each of
+    ``GEMM_ROWS`` against its plain version, two runs bit for bit; then in
+    turns with its plain version and ``torch.matmul`` on the same bf16
+    operands (cuBLAS, a yardstick the port never calls), beside its bound.
+    Returns {form: (max_abs, ms, plain_ms, bound, matmul_ms)} at
+    ``GEMM_REPORT_ROWS``."""
+    import re
+
+    import torch
+
+    from sod_tpu_torch.ops import gemm as G
+
+    rng = np.random.default_rng(3)
+
+    def mk(shape, dtype, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale).to(
+            device="cuda", dtype=getattr(torch, dtype))
+
+    report = {}
+    for m in GEMM_ROWS:
+        for name, epi, ln, a_t, res_t, n, k in GEMM_FORMS:
+            a = mk((m, k), a_t)
+            w, bias = mk((n, k), "bfloat16", 0.02), mk((n,), "bfloat16", 0.02)
+            lnp = ((1 + mk((k,), "float32", 0.1)).to(torch.bfloat16),
+                   mk((k,), "bfloat16", 0.1)) if ln else None
+            res = mk((m, n), res_t) if res_t else None
+            before = G.launches
+            got = G.gemm(a, w, bias, epi, ln=lnp, res=res)
+            again = G.gemm(a, w, bias, epi, ln=lnp, res=res)
+            torch.cuda.synchronize()
+            if G.launches - before != 2:
+                raise AssertionError(f"gemm counted {G.launches - before} launches for 2 calls")
+            ref = G.gemm_reference(a, w, bias, epi, ln=lnp, res=res)
+            max_abs = float((got.float() - ref.float()).abs().max())
+            limit = (bf16_ulp_at(ref) if got.dtype == torch.bfloat16
+                     else GEMM_F32_REL * float(ref.abs().max()))
+            ok = bool(torch.isfinite(got).all()) and max_abs <= limit and torch.equal(got, again)
+            a16 = a.to(torch.bfloat16)
+            kern = lambda: G.gemm(a, w, bias, epi, ln=lnp, res=res)
+            plain = lambda: G.gemm_reference(a, w, bias, epi, ln=lnp, res=res)
+            lib = lambda: torch.matmul(a16, w.t())
+            # all three from CUDA graphs: device time, the host's launches left out
+            p1, k1, l1, k2, l2, p2 = (graph_ms(plain, 5), graph_ms(kern), graph_ms(lib),
+                                      graph_ms(kern), graph_ms(lib), graph_ms(plain, 5))
+            ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+            bound = gemm_bound(m, n, k, epi, ln, a.element_size(),
+                               0 if res is None else res.element_size())
+            flops = 2.0 * m * n * k
+            cfg, tiles = G.plan(ln, m, n, k)
+            rows, cols = (int(v) for v in re.search(r"(\d+)x(\d+)", cfg).groups())
+            items = -(-m // rows) * -(-(n // cols) // tiles)
+            print(f"  {name:4s} M {m:5d} N {n:4d} K {k:4d} ({cfg}, {tiles} column tiles an "
+                  f"item, {items} items = {items / torch.cuda.get_device_properties(0).multi_processor_count:.2f} per SM): "
+                  f"max_abs {max_abs:.4g} (<= {limit:.4g}), runs equal; kernel {ms:.4f} ms "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s {100 * flops / ms / 1e9 / 989:.1f}% of 989, "
+                  f"matmul {lib_ms:.4f} ms {100 * flops / lib_ms / 1e9 / 989:.1f}%, plain "
+                  f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+                  f"-> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"gemm {name} at M {m} disagrees with its plain version "
+                                     f"or between runs")
+            if m == GEMM_REPORT_ROWS:
+                report[name] = (max_abs, ms, plain_ms, bound, lib_ms)
+    phase(3, f"gemm_kernel's four forward forms match their plain versions at M in "
+             f"{GEMM_ROWS} (bf16 within one ulp, f32 within {GEMM_F32_REL} relative)")
+    return report
 
 
 def plain_encoder(vit, x):
@@ -2258,6 +2403,7 @@ def main():
 
     build_kernels()
     max_abs, timings = kernel_check()
+    gemms = gemm_check()
     svc, cfg, launches = main_path()
     try:
         requests_phase(svc, cfg)
@@ -2284,11 +2430,13 @@ def main():
     k2_bounds = k2_bound(*K2_TRAIN_SHAPE)
     k2_eval = k2_times["eval"]
 
-    def entry(kernel, n_launches, err, ms, plain_ms, bound, library_ms=None):
+    def entry(kernel, n_launches, err, ms, plain_ms, bound, library_ms=None, **extra):
         return dict(kernel, launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    **bound, library_ms=library_ms)
+                    **bound, library_ms=library_ms, **extra)
 
-    report = [entry(KERNEL, launches, max_abs, *timings[8], k1_bound),
+    k1_ms, k1_plain_ms, k1_graph_ms = timings[8]
+    report = [entry(KERNEL, launches, max_abs, k1_ms, k1_plain_ms, k1_bound,
+                    graph_ms=k1_graph_ms),
               entry(K8, k8_launches, k8_worst, *k8_times[8][:2], k8_bound),
               entry(K2_FWD, k2_launches[0], k2_worst["fwd"], *k2_times["fwd"],
                     k2_bounds["fwd"], k2_times["fwd_lib"]),
@@ -2307,6 +2455,12 @@ def main():
               entry(K5, fused_run["K5"], *ev["K5"], ev["bound"]["K5"]),
               entry(K6, default_run["K6"], *ev["K6"], ev["bound"]["K6"]),
               entry(K7, fused_run["K7"], *ev["K7"], ev["bound"]["K7"])]
+    # gemm_kernel in K1's four forms at B=8 (device time, from CUDA graphs).
+    # The main path launches them inside K1's chain, not through ops/gemm.py:
+    # each form's launches are K1's counted launches, one per K1 launch
+    for name, (err, ms, plain_ms, bound, lib_ms) in gemms.items():
+        report.append(entry(dict(GEMM, name=f"gemm_{name}"), launches, err, ms, plain_ms,
+                            bound, lib_ms, launches_rule="one per fused_vit_block launch"))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

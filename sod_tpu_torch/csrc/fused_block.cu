@@ -30,10 +30,14 @@
 //   (c) proj GEMM + bias + residual -> f32 x1
 //   (d) LN2 fused into the A load of the fc1 GEMM, + bias, tanh-GELU -> bf16
 //   (e) fc2 GEMM + bias + residual -> bf16 out
-// Every GEMM is nvcuda::wmma 16x16x16 bf16 with f32 accumulators on
-// shared-memory tiles (no cuBLAS); wgmma/TMA pipelining for them is later
-// work.  The attention's products are wgmma on register-resident score tiles
-// fed by a cp.async ring (attention.cuh).
+// The GEMMs are vit_block.cuh's gemm_kernel (no cuBLAS): wgmma from
+// swizzled shared memory fed by a TMA ring that a producer warp keeps full,
+// LN1 and LN2 computed once per row panel and kept in shared memory for all
+// of K, the epilogues on the accumulators' registers; the tile and the
+// column tiles per block are planned per shape (gemm_plan: at B=8, M 7168,
+// 64-row panels for QKV and proj, 128-row ones for fc1, streamed 64 x 128
+// tiles for fc2; 64 x 64 tiles at B=1).  The attention's products are wgmma
+// on register-resident score tiles fed by a cp.async ring (attention.cuh).
 //
 // Shape contract (checked by the Python wrapper): rows M = batch * n_pad
 // with n_pad % 128 == 0, d % 64 == 0, hidden % 64 == 0, head dim in
@@ -70,4 +74,31 @@ extern "C" int sod_fused_vit_block(
     err = launch_gemm<EPI_RES_BF16, false, bf16>(
         hid, nullptr, nullptr, 0.f, w_fc2, b_fc2, x1, out, M, dim, hidden, stream);
     return (int)err;
+}
+
+// One forward GEMM of the block alone (timing and checks): form 0 = LN of
+// bf16 rows + bias -> bf16 (QKV), 1 = + bias + bf16 residual -> f32 (proj),
+// 2 = LN of f32 rows + bias, tanh-GELU -> bf16 (fc1), 3 = + bias + f32
+// residual -> bf16 (fc2).  Returns a cudaError_t.
+extern "C" int sod_gemm(int form, const void* a, const void* ln_w, const void* ln_b,
+                        const void* w, const void* bias, const void* res, void* out, int M,
+                        int N, int K, float eps, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    switch (form) {
+        case 0: return (int)launch_gemm<EPI_BIAS_BF16, true, bf16>(
+            a, ln_w, ln_b, eps, w, bias, nullptr, out, M, N, K, stream);
+        case 1: return (int)launch_gemm<EPI_RES_F32, false, bf16>(
+            a, nullptr, nullptr, 0.f, w, bias, res, out, M, N, K, stream);
+        case 2: return (int)launch_gemm<EPI_GELU_BF16, true, float>(
+            a, ln_w, ln_b, eps, w, bias, nullptr, out, M, N, K, stream);
+        case 3: return (int)launch_gemm<EPI_RES_BF16, false, bf16>(
+            a, nullptr, nullptr, 0.f, w, bias, res, out, M, N, K, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// The plan gemm_plan makes for a shape: config * 1000 + column tiles per block.
+extern "C" int sod_gemm_plan(int ln, int M, int N, int K) {
+    const GemmPlan p = gemm_plan(ln != 0, M, N, K);
+    return p.config * 1000 + p.tiles;
 }

@@ -48,7 +48,7 @@
 
 #include "vit_block.cuh"
 
-using namespace sod;   // launch_attention, ln_stats, warp helpers, tile sizes
+using namespace sod;   // launch_attention, ln_row_stats, warp helpers, tile sizes
 
 namespace {
 
@@ -89,7 +89,7 @@ quant_rows_kernel(const InT* __restrict__ in, const float* __restrict__ ln_w,
     const size_t r = (size_t)blockIdx.x * (THREADS / 32) + warp;
     const InT* row = in + r * K;
     float mean = 0.f, rstd = 0.f;
-    if (LN) ln_stats(row, K, eps, lane, mean, rstd);
+    if (LN) ln_row_stats(row, lane, K, eps, mean, rstd);
     float amax = 0.f;
     for (int c = lane; c < K; c += 32)
         amax = fmaxf(amax, fabsf(row_value<LN>(row, c, mean, rstd, ln_w, ln_b)));

@@ -25,7 +25,9 @@
 // launches, with K1's device code (vit_block.cuh):
 //   (a) LN fused into the A load of the fc1 GEMM, + bias, tanh-GELU -> bf16
 //   (b) fc2 GEMM + bias + residual -> bf16 out
-// wmma bf16 with f32 accumulation; keeping the hidden on chip is later work.
+// vit_block.cuh's gemm_kernel: wgmma fed by a TMA ring, the LN panel of each
+// 128 (or 64) rows normalised once and kept for all of K, register
+// epilogues; keeping the hidden on chip is later work.
 // The backward (12 d hidden FLOP per row recomputing, 8 saved, against the
 // same few KB per row) is tensor-core bound too.  The TPU kernel sums the
 // weight gradients over its sequential row-chunk grid; blocks here run in no

@@ -66,3 +66,28 @@ def test_k2_bound_and_phase_6_shapes():
     assert cs.K2_HEAD_DIMS == (32, 64, 128)
     mask = cs._canvas_mask(np.random.default_rng(0), 4, 2501)
     assert mask.shape == (4, 2501) and mask[:, 0].all() and not mask.all()
+
+
+def test_gemm_bound_and_phase_3_shapes():
+    """The GEMM bound as a host function of (M, N, K, epilogue, LN, a's and
+    res's bytes): K1's QKV at B=8 (M 7168, N 1152, K 384) does 6.34 GFLOP
+    (0.00641 ms at 989 TFLOP/s) and moves 22.9 MB (0.00684 ms at 3.35 TB/s),
+    so bytes bound it; an f32 output or input moves more.  Phase 3 times
+    the four forms at K1's B=1 and B=8 rows and K4's train and eval rows,
+    and sweeps the fused block to d 768 and 1024."""
+    import chip_smoke as cs
+
+    b = cs.gemm_bound(7168, 1152, 384, "bias_bf16", True, 2, 0)
+    assert b["bound_by"] == "bytes"
+    assert abs(b["bound_ms"] - 22908672 / 3.35e12 * 1e3) <= 1e-12
+    flops_ms = 2 * 7168 * 1152 * 384 / 989e12 * 1e3
+    assert abs(flops_ms - 0.00641) <= 1e-5 and b["bound_ms"] > flops_ms
+    f32 = cs.gemm_bound(7168, 1152, 384, "res_f32", False, 2, 2)
+    assert f32["bound_ms"] > b["bound_ms"]
+    long_k = cs.gemm_bound(4096, 4096, 8192, "bias_bf16", False, 2, 0)
+    assert long_k["bound_by"] == "operations"
+    assert set(cs.GEMM_ROWS) == {896, 7168, 6336, 40960}
+    assert cs.GEMM_REPORT_ROWS in cs.GEMM_ROWS
+    assert [f[1] for f in cs.GEMM_FORMS] == ["bias_bf16", "res_f32", "gelu_bf16", "res_bf16"]
+    assert {d for d, _ in cs.K1_WIDTHS} >= {768, 1024}
+    assert all(d // h in (32, 64, 128) for d, h in cs.K1_WIDTHS)
