@@ -21,7 +21,15 @@ Phases, each printed as it passes; any failure exits non-zero:
    residual -> bf16) at 896, 7168, 6336 and 40960 rows against its plain
    version (and two runs bit for bit), timed in turns with it and with
    ``torch.matmul`` on the same bf16 operands, all three from CUDA graphs,
-   with TFLOP/s, the share of 989 TFLOP/s and the bound;
+   with TFLOP/s, the share of 989 TFLOP/s and the bound.  Then the backward
+   of K3 and K4 alone at the fused train step's shapes (K3 on 7168 rows, K4
+   on 6336; d 384, hidden 1536): the eight backward forms of
+   ``gemm_kernel`` (NN: dattn -> bf16, dh -> f32, K4's dy . W2 with the
+   GELU gradient on the f32 recompute and on the kept bf16 hidden, dh ->
+   f32; TN: dWproj, dWqkv, dW2, dW1) and the LayerNorm backward, each
+   against its plain version (bf16 within one ulp, f32 within 1e-5
+   relative) and two runs bit for bit, timed the same way, with the plan,
+   TFLOP/s, ``torch.matmul`` and the bound;
 4. main path: the port's inference service at the full width of the
    shipped config (ViT-S/8 at 224 px, 6 decoder layers, 20 queries, bf16)
    with seeded random weights: ``model_step`` on 4 images and one B=8
@@ -498,7 +506,7 @@ def gemm_check():
             bound = gemm_bound(m, n, k, epi, ln, a.element_size(),
                                0 if res is None else res.element_size())
             flops = 2.0 * m * n * k
-            cfg, tiles = G.plan(ln, m, n, k)
+            cfg, tiles, _ = G.plan(ln, m, n, k)
             rows, cols = (int(v) for v in re.search(r"(\d+)x(\d+)", cfg).groups())
             items = -(-m // rows) * -(-(n // cols) // tiles)
             print(f"  {name:4s} M {m:5d} N {n:4d} K {k:4d} ({cfg}, {tiles} column tiles an "
@@ -515,6 +523,169 @@ def gemm_check():
                 report[name] = (max_abs, ms, plain_ms, bound, lib_ms)
     phase(3, f"gemm_kernel's four forward forms match their plain versions at M in "
              f"{GEMM_ROWS} (bf16 within one ulp, f32 within {GEMM_F32_REL} relative)")
+    return report
+
+
+# The backward forms of gemm_kernel as K3's and K4's chains call them at the
+# fused train step (B=8, 785 tokens: K3 on 8 x 896 = 7168 rows, K4 on 6280
+# rows padded to 6336; d 384, hidden 1536): (name, layout, rows, N, K, epilogue)
+# for NN, C[rows, N] = A[rows, K] . W[K, N]; for TN, C[N, K] = A[rows, N]^T .
+# B[rows, K] (the contracted rows are `rows`)
+GEMM_BWD_FORMS = (("k3_dattn", "nn", 7168, 384, 384, "bf16"),
+                  ("k3_dh", "nn", 7168, 384, 1152, "f32"),
+                  ("k3_dwproj", "tn", 7168, 384, 384, None),
+                  ("k3_dwqkv", "tn", 7168, 1152, 384, None),
+                  ("k4_dgelu", "nn", 6336, 1536, 384, "dgelu"),           # fc1 recomputed inside
+                  ("k4_dh", "nn", 6336, 384, 1536, "f32"),
+                  ("k4_dw2", "tn", 6336, 384, 1536, None),
+                  ("k4_dw1", "tn", 6336, 1536, 384, None))
+LN_BWD_ROWS = (("k3", 7168), ("k4", 6336))      # the LayerNorm backward at d 384
+GEMM_BWD = dict(GEMM, replaces="sod_tpu/ops/fused_attn.py:182")
+GEMM_BWD_K4 = dict(GEMM, replaces="sod_tpu/ops/fused_mlp.py:122")
+
+
+def gemm_bwd_bound(layout: str, rows: int, n: int, k: int, epilogue) -> dict:
+    """The least time for one backward form: its products at the bf16 peak
+    against its operands and outputs, each moved once (NN: A, W, the output;
+    the GELU gradient also writes gel and the f32 column sums, and reads the
+    kept bf16 hidden ("dgelu_kept") or recomputes it, a second product over
+    h, W1 and b1 ("dgelu"); TN: A, B and the f32 [N, K] output)."""
+    if layout == "tn":
+        return roofline(2.0 * rows * n * k, 2 * rows * (n + k) + 4 * n * k)
+    flops, n_bytes = 2.0 * rows * n * k, 2 * rows * k + 2 * k * n
+    if epilogue == "dgelu":
+        flops, n_bytes = 2 * flops, 2 * n_bytes + 2 * n
+    out = {"bf16": 2, "f32": 4, "dgelu": 2 + 2, "dgelu_kept": 2 + 2 + 2}[epilogue]
+    return roofline(flops, n_bytes + rows * n * out + (4 * n if "dgelu" in epilogue else 0))
+
+
+def ln_bwd_bound(rows: int, d: int) -> dict:
+    """x bf16, dh f32, g bf16 and ln_w read, dx bf16 and three f32 column
+    sums written; its arithmetic is far below the bytes."""
+    return roofline(0.0, rows * d * (2 + 4 + 2 + 2) + 2 * d + 12 * d)
+
+
+def gemm_bwd_check():
+    """Phase 3, the backward: each of the eight backward forms of
+    gemm_kernel (and the dgelu form on a kept bf16 hidden) and the
+    LayerNorm backward at the fused train step's shapes against its plain
+    version, two runs bit for bit, then timed from CUDA graphs in turns with
+    its plain version and ``torch.matmul`` on the same bf16 operands, beside
+    its bound.  Returns {name: (max_abs, ms, plain_ms, bound, matmul_ms,
+    extra keys for the kernel line)}."""
+    import torch
+
+    from sod_tpu_torch.ops import gemm as G
+
+    rng = np.random.default_rng(4)
+
+    def mk(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale).to(
+            device="cuda", dtype=dtype)
+
+    def held(got, ref):
+        """max_abs and its limit: one bf16 ulp at the output's magnitude, or
+        GEMM_F32_REL of it for f32"""
+        max_abs = float((got.float() - ref.float()).abs().max())
+        limit = (bf16_ulp_at(ref) if got.dtype == torch.bfloat16
+                 else GEMM_F32_REL * float(ref.abs().max()))
+        return max_abs, limit, bool(torch.isfinite(got).all()) and max_abs <= limit
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report = {}
+    forms = list(GEMM_BWD_FORMS) + [("k4_dgelu_kept", "nn", 6336, 1536, 384, "dgelu_kept")]
+    for name, layout, rows, n, k, epi in forms:
+        if layout == "nn":
+            a, w = mk((rows, k), 0.5), mk((k, n), 0.02)
+            pre, dgelu, flops = None, None, 2.0 * rows * n * k
+            kind = "dgelu" if "dgelu" in epi else epi
+            lib = lambda: torch.matmul(a, w)
+            if epi == "dgelu_kept":
+                pre, dgelu = mk((rows, n)), "kept"
+            elif epi == "dgelu":
+                # the hidden recomputed inside: h . W1^T + b1, a second product
+                h1, w1, b1 = mk((rows, k)), mk((n, k), 0.1), mk((n,), 0.1)
+                pre, dgelu, flops = (h1, w1, b1), "recomputed", 2 * flops
+                lib = lambda: (torch.matmul(a, w), torch.matmul(h1, w1.t()))
+            kern = lambda: G.gemm_nn(a, w, kind, pre)
+            plain = lambda: G.gemm_nn_reference(a, w, kind, pre)
+            counter = "nn_launches"
+            cfg, tiles, split = G.plan(False, rows, n, k, "nn", dgelu)
+            items = -(-rows // (128 if cfg.endswith("128x128") else 64)) * -(
+                -(n // int(cfg.rsplit("x", 1)[1])) // tiles)
+            how = f"{cfg}, {tiles} column tiles an item"
+        else:
+            a, b = mk((rows, n), 0.5), mk((rows, k), 0.5)
+            kern = lambda: G.gemm_tn(a, b)
+            plain = lambda: G.gemm_tn_reference(a, b)
+            lib = lambda: torch.matmul(a.t(), b)
+            counter, flops = "tn_launches", 2.0 * rows * n * k
+            cfg, tiles, split = G.plan(False, n, k, rows, "tn")
+            tile_r = 128 if cfg.endswith("128x128") else 64
+            items = (n // tile_r) * (k // int(cfg.rsplit("x", 1)[1])) * -(-rows // split)
+            how = f"{cfg}, {split} rows a split"
+        before = getattr(G, counter)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        if getattr(G, counter) - before != 2:
+            raise AssertionError(f"{name}: {getattr(G, counter) - before} launches counted for 2 calls")
+        ref = plain()
+        got, again, ref = ((t,) if torch.is_tensor(t) else t for t in (got, again, ref))
+        checks = [held(x, r) for x, r in zip(got, ref)]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = same and all(c[2] for c in checks)
+        p1, k1, l1, k2, l2, p2 = (graph_ms(plain, 5), graph_ms(kern), graph_ms(lib),
+                                  graph_ms(kern), graph_ms(lib), graph_ms(plain, 5))
+        ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+        bound = gemm_bwd_bound(layout, rows, n, k, epi)
+        print(f"  {name:13s} {layout} rows {rows} N {n} K {k} ({how}, {items} items = "
+              f"{items / sms:.2f} per SM): max_abs "
+              + " / ".join(f"{c[0]:.4g} (<= {c[1]:.4g})" for c in checks)
+              + f", runs equal {same}; kernel {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s "
+              f"{100 * flops / ms / 1e9 / 989:.1f}% of 989, "
+              f"{'two matmuls' if epi == 'dgelu' else 'matmul'} {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x), plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}, {ms / bound['bound_ms']:.2f}x) -> {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version or between runs")
+        # one torch.matmul call computes the product, not the recomputing
+        # form's two: those are kept beside it, not as its library call
+        report[name] = (max(c[0] for c in checks), ms, plain_ms, bound,
+                        None if epi == "dgelu" else lib_ms,
+                        {"two_matmuls_ms": lib_ms} if epi == "dgelu" else {})
+
+    for tag, rows in LN_BWD_ROWS:
+        d = 384
+        x, dh, g = mk((rows, d), 2.0), mk((rows, d), 0.05, torch.float32), mk((rows, d), 0.5)
+        ln_w = (1 + mk((d,), 0.1, torch.float32)).to(torch.bfloat16)
+        before = G.ln_bwd_launches
+        got, again = G.ln_backward(x, dh, g, ln_w), G.ln_backward(x, dh, g, ln_w)
+        torch.cuda.synchronize()
+        if G.ln_bwd_launches - before != 2:
+            raise AssertionError("ln_backward: launches not counted")
+        ref = G.ln_backward_reference(x, dh, g, ln_w)
+        checks = [held(a_, r) for a_, r in zip(got, ref)]
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        kern = lambda: G.ln_backward(x, dh, g, ln_w)
+        plain = lambda: G.ln_backward_reference(x, dh, g, ln_w)
+        p1, k1, k2, p2 = graph_ms(plain, 5), graph_ms(kern), graph_ms(kern), graph_ms(plain, 5)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound = ln_bwd_bound(rows, d)
+        ok = same and all(c[2] for c in checks)
+        print(f"  ln_backward_{tag} rows {rows} d {d}: max_abs dx / dLN scale / dLN bias / sum g "
+              + " / ".join(f"{c[0]:.4g} (<= {c[1]:.4g})" for c in checks)
+              + f", runs equal {same}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {ms / bound['bound_ms']:.2f}x) "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ln_backward at {rows} rows disagrees with its plain version "
+                                 f"or between runs")
+        report[f"ln_backward_{tag}"] = (max(c[0] for c in checks), ms, plain_ms, bound, None, {})
+    phase(3, f"gemm_kernel's {len(GEMM_BWD_FORMS)} backward forms (and dgelu on a kept hidden) "
+             f"and the LayerNorm backward match their plain versions at the fused train "
+             f"step's shapes (bf16 within one ulp, f32 within {GEMM_F32_REL} relative), runs "
+             f"bit for bit")
     return report
 
 
@@ -1078,10 +1249,8 @@ def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step", watch
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/{unit} "
               f"x{e.count // n:<5d} {e.key[:90]}")
-    groups = {"the port's kernels": ("flash_", "gemm_kernel", "gemm_nn_kernel",
-                                     "gemm_tn_kernel", "attention_kernel", "attn_bwd_",
-                                     "ln_rows_", "ln_bwd_", "reduce_partials_",
-                                     "quant_rows_", "sweep_", "ub_count"),
+    groups = {"the port's kernels": ("flash_", "gemm_kernel", "attention_kernel", "attn_bwd_",
+                                     "ln_rows_", "ln_bwd_", "reduce_partials_", "quant_rows_", "sweep_", "ub_count"),
               "cuBLAS GEMMs": ("gemm", "xmma", "cutlass"), "copies and casts": ("copy",)}
     shares = {g: 0.0 for g in (*groups, "other")}
     for e in kernels:
@@ -1768,7 +1937,7 @@ def fused_train_kernels_check(b: int = TRAIN_B, n_real: int = TRAIN_N):
         # ---- K4
         w4 = [w.detach() for w in fmlp._weights(blk)]
         # the rows the model hands it: 8 x 785 = 6280, padded to the 64-row tile
-        # (6336: twelve 512-row splits of the weight gradients and a ragged one)
+        # (6336 = 99 x 64: a 128-row tile ends half outside the rows)
         rows_real = b * n_real
         rows = -(-rows_real // fmlp.ROWS) * fmlp.ROWS
         x2 = tokens(2.0, (1, rows, d), rows_real)[0]
@@ -1805,8 +1974,7 @@ def fused_train_kernels_check(b: int = TRAIN_B, n_real: int = TRAIN_N):
         print("  K4 backward: two runs bit for bit: True", flush=True)
 
         # ---- the other head widths the kernels are built for (32, 128), small;
-        # K4 on 576 rows: a full 512-row split of the weight gradients and a
-        # ragged one
+        # K4 on 576 rows (9 x 64: a 128-row tile ends half outside the rows)
         for dd, hh in ((128, 4), (256, 2)):
             blk_s = make_block(rng, dd, hh, True)
             ws = [w.detach() for w in fattn._weights(blk_s)]
@@ -1961,6 +2129,17 @@ def plain_fused_train():
                 setattr(mod, name, fn)
 
 
+# the fused step's port kernels by piece (substrings of the profiler's kernel
+# names: gemm_kernel's last template argument is its layout, 0 NT, 1 NN, 2 TN)
+FUSED_STEP_WATCH = {
+    "gemm_kernel NT (forward, recomputes)": ("e, 0>(",),
+    "gemm_kernel NN (input gradients)": ("e, 1>(",),
+    "gemm_kernel TN (weight gradients)": ("e, 2>(",),
+    "ln_bwd_kernel": ("ln_bwd_kernel",), "ln_rows_kernel": ("ln_rows_kernel",),
+    "reduce_partials": ("reduce_partials",), "attention forward": ("attention_kernel",),
+    "attention backward (dq, dk/dv)": ("attn_bwd_",)}
+
+
 def fused_train_step_check():
     """Phase 12: returns the launch counts of one step per switch, the step
     times and the profile of the ``use_fused_train`` step."""
@@ -2084,7 +2263,8 @@ def fused_train_step_check():
     print(f"  step at B={b}, two rounds of 10 steps in turns: " + "; ".join(
         f"{name} {rounds[0][name]:.3f} and {rounds[1][name]:.3f} ms "
         f"({b * 1e3 / t:.1f} img/s)" for name, t in times.items()), flush=True)
-    prof = profile_steps(steps["use_fused_train"], batch, 3, times["use_fused_train"])
+    prof = profile_steps(steps["use_fused_train"], batch, 3, times["use_fused_train"],
+                         watch=FUSED_STEP_WATCH)
     phase(12, f"fused train step at full width: {depth}+{depth} launches of K3 and of K4 "
               f"(use_fused_mlp: of K2 and of K4), agrees with the plain step, "
               f"{times['use_fused_train']:.1f} ms/step (use_fused_mlp "
@@ -2404,6 +2584,7 @@ def main():
     build_kernels()
     max_abs, timings = kernel_check()
     gemms = gemm_check()
+    gemms_bwd = gemm_bwd_check()
     svc, cfg, launches = main_path()
     try:
         requests_phase(svc, cfg)
@@ -2461,6 +2642,20 @@ def main():
     for name, (err, ms, plain_ms, bound, lib_ms) in gemms.items():
         report.append(entry(dict(GEMM, name=f"gemm_{name}"), launches, err, ms, plain_ms,
                             bound, lib_ms, launches_rule="one per fused_vit_block launch"))
+    # the backward forms and the LayerNorm backward at the fused train step's
+    # shapes (device time, from CUDA graphs), launched inside K3's and K4's
+    # backward chains: one per chain launch (the kept-hidden dgelu form under
+    # fused_save_acts, phase 12's step)
+    for name, (err, ms, plain_ms, bound, lib_ms, extra) in gemms_bwd.items():
+        k3 = "k3" in name
+        n_launches = (step_counts["fused_save_acts"]["K4 bwd"] if name.endswith("kept")
+                      else tr["K3 bwd" if k3 else "K4 bwd"])
+        rule = ("one per K4 backward launch under fused_save_acts" if name.endswith("kept")
+                else f"one per {'K3' if k3 else 'K4'} backward launch")
+        src = dict(GEMM_BWD if k3 else GEMM_BWD_K4,
+                   name=name if name.startswith("ln_") else f"gemm_{name}")
+        report.append(entry(src, n_launches, err, ms, plain_ms, bound, lib_ms,
+                            launches_rule=rule, **extra))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

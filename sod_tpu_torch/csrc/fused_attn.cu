@@ -99,11 +99,13 @@ extern "C" int sod_fused_ln_attn_infer(
 //   forward  (a) LN-fused QKV GEMM -> bf16 qkv  (b) two-pass attention ->
 //            bf16 attn, m, l  (c) proj GEMM + residual -> bf16 out
 //   backward (a) LN rows -> bf16 h  (b) QKV GEMM again unless qkv was kept
-//            (c) attention again unless attn was kept  (d) dattn GEMM (W not
-//            transposed)  (e) dq launch, dk/dv launch (attention_bwd.cuh,
+//            (c) attention again unless attn was kept  (d) dattn GEMM (NN:
+//            W not transposed)  (e) dq launch, dk/dv launch (attention_bwd.cuh,
 //            K2's device code over the packed layout)  (f) dWproj, dWqkv:
-//            row-contracting GEMMs split by image + reduce  (g) dh GEMM
-//            (h) LayerNorm backward + column partials  (i) reduces
+//            row-contracting GEMMs (TN), rows split per shape + reduce
+//            (g) dh GEMM (NN)  (h) LayerNorm backward + column partials
+//            (i) reduces.  Every product is vit_block.cuh's gemm_kernel
+//            (wgmma fed by a TMA ring) in the layout named.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -217,10 +219,10 @@ extern "C" int sod_fused_ln_attn_train_fwd(
 // attn_saved: 1 when the buffer holds the forward's values, 0 when it is
 // scratch to recompute into.  m, l: the forward's statistics.  Scratch: h
 // [M, d] bf16, dattn [M, d] bf16, dsum [batch, heads, n_pad] f32, dqkv
-// [M, 3d] bf16, dh [M, d] f32, colsum [M / 16, 3d] f32, part_w
-// [batch, 3d, d] f32, part_ln [M / 64, 3, d] f32.  Outputs: dx [M, d] bf16;
-// f32 dw_qkv [3d, d], db_qkv [3d], dw_proj [d, d] (torch (out, in) layout) and
-// dln3 [3, d] = dLN scale, dLN bias, db_proj.
+// [M, 3d] bf16, dh [M, d] f32, colsum [M / 16, 3d] f32, part_w and part_ln
+// f32 of the sizes sod_fused_ln_attn_bwd_scratch gives.  Outputs: dx [M, d]
+// bf16; f32 dw_qkv [3d, d], db_qkv [3d], dw_proj [d, d] (torch (out, in)
+// layout) and dln3 [3, d] = dLN scale, dLN bias, db_proj.
 extern "C" int sod_fused_ln_attn_bwd(
     const void* x, const void* g, const void* ln_w, const void* ln_b, const void* w_qkv,
     const void* b_qkv, const void* w_proj, void* qkv, int qkv_saved, void* attn, int attn_saved,
@@ -242,20 +244,26 @@ extern "C" int sod_fused_ln_attn_bwd(
                                stream, m, l);
         if (err != cudaSuccess) return (int)err;
     }
-    err = launch_gemm_nn<NN_BF16, false>(g, w_proj, nullptr, dattn, nullptr, nullptr, M, dim, dim,
-                                         stream);
+    err = launch_gemm_nn<EPI_BF16>(g, w_proj, dattn, M, dim, dim, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_attention_bwd(qkv, dattn, m, l, dsum, dqkv, colsum, batch, n_pad, dim, n_heads,
                                n_real, scale, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_reduce(colsum, M / 16, (size_t)3 * dim, db_qkv, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_tn(g, attn, part_w, dw_proj, M, dim, dim, n_pad, stream);
+    err = launch_gemm_tn(g, attn, part_w, dw_proj, M, dim, dim, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_tn(dqkv, h, part_w, dw_qkv, M, 3 * dim, dim, n_pad, stream);
+    err = launch_gemm_tn(dqkv, h, part_w, dw_qkv, M, 3 * dim, dim, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_nn<NN_F32, false>(dqkv, w_qkv, nullptr, dh, nullptr, nullptr, M, dim,
-                                        3 * dim, stream);
+    err = launch_gemm_nn<EPI_F32>(dqkv, w_qkv, dh, M, dim, 3 * dim, stream);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_ln_bwd(x, dh, g, ln_w, eps, dx, part_ln, dln3, M, dim, stream);
+}
+
+// f32 floats of the backward's partial buffers at M rows of width dim:
+// floats[0] part_w (the weight gradients' row splits), floats[1] part_ln
+extern "C" void sod_fused_ln_attn_bwd_scratch(int M, int dim, long long* floats) {
+    floats[0] = (long long)std::max(gemm_tn_part_floats(M, dim, dim),
+                                    gemm_tn_part_floats(M, 3 * dim, dim));
+    floats[1] = (long long)ln_bwd_blocks(M) * 3 * dim;
 }

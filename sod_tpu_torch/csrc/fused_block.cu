@@ -43,6 +43,11 @@
 // with n_pad % 128 == 0, d % 64 == 0, hidden % 64 == 0, head dim in
 // {32, 64, 128}, 16-byte aligned contiguous tensors.  No edge masking is
 // needed under it.
+//
+// The library also launches gemm_kernel alone for ops/gemm.py: its forward
+// forms (sod_gemm), the backward products of K3 and K4 (sod_gemm_nn,
+// sod_gemm_tn) and their LayerNorm backward (sod_ln_bwd), with the plans
+// they take (sod_gemm_plan).
 
 #include "vit_block.cuh"
 
@@ -97,8 +102,63 @@ extern "C" int sod_gemm(int form, const void* a, const void* ln_w, const void* l
     }
 }
 
-// The plan gemm_plan makes for a shape: config * 1000 + column tiles per block.
-extern "C" int sod_gemm_plan(int ln, int M, int N, int K) {
-    const GemmPlan p = gemm_plan(ln != 0, M, N, K);
-    return p.config * 1000 + p.tiles;
+// One backward product of K3 and K4 alone (timing and checks), NN: C[M, N]
+// = A[M, K] . W[K, N].  form 0 -> bf16 out, 1 -> f32 out, 2 = the GELU
+// gradient with the kept bf16 hidden `pre` [M, N], 3 = with the hidden
+// recomputed as f32(h . w1^T + b1) (h [M, K], w1 [N, K], b1 [N] bf16): bf16
+// da to out, bf16 gel to out2, the column sums of the f32 da per 64 rows to
+// part [M / 64][N] and their sum to colsum [N].  Returns a cudaError_t.
+extern "C" int sod_gemm_nn(int form, const void* a, const void* w, const void* pre,
+                           const void* h, const void* w1, const void* b1, void* out, void* out2,
+                           void* part, void* colsum, int M, int N, int K, void* stream_ptr) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t err;
+    switch (form) {
+        case 0: return (int)launch_gemm_nn<EPI_BF16>(a, w, out, M, N, K, stream);
+        case 1: return (int)launch_gemm_nn<EPI_F32>(a, w, out, M, N, K, stream);
+        case 2: err = launch_gemm_dgelu(a, w, pre, nullptr, nullptr, nullptr, out, out2, part, M,
+                                        N, K, stream); break;
+        case 3: err = launch_gemm_dgelu(a, w, nullptr, h, w1, b1, out, out2, part, M, N, K,
+                                        stream); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_reduce(part, M / 64, (size_t)N, colsum, stream);
+}
+
+// The row-contracting product alone: out [KA, NB] f32 = A[M, KA]^T . B[M, NB];
+// part: sod_gemm_tn_part_floats f32 of scratch.  Returns a cudaError_t.
+extern "C" int sod_gemm_tn(const void* a, const void* b, void* part, void* out, int M, int KA,
+                           int NB, void* stream_ptr) {
+    return (int)launch_gemm_tn(a, b, part, out, M, KA, NB, static_cast<cudaStream_t>(stream_ptr));
+}
+
+extern "C" long long sod_gemm_tn_part_floats(int M, int KA, int NB) {
+    return (long long)gemm_tn_part_floats(M, KA, NB);
+}
+
+// The LayerNorm backward of K3 and K4 alone: dx [M, K] bf16 and out3 =
+// [dLN scale, dLN bias, column sums of g] f32 [3][K]; part:
+// sod_ln_bwd_part_floats f32 of scratch.  Returns a cudaError_t.
+extern "C" int sod_ln_bwd(const void* x, const void* dh, const void* g, const void* ln_w,
+                          float eps, void* dx, void* part, void* out3, int M, int K,
+                          void* stream_ptr) {
+    return (int)launch_ln_bwd(x, dh, g, ln_w, eps, dx, part, out3, M, K,
+                              static_cast<cudaStream_t>(stream_ptr));
+}
+
+extern "C" long long sod_ln_bwd_part_floats(int M, int K) {
+    return (long long)ln_bwd_blocks(M) * 3 * K;
+}
+
+// The plan of a gemm_kernel launch (layout 0 NT, 1 NN, 2 TN; kind: 0, or the
+// GELU gradient reading its kept hidden 1, recomputing it 2): plan[0] the
+// configuration (an index of GEMM_CONFIG), plan[1] the column tiles per
+// block, plan[2] the rows per split (TN).
+extern "C" void sod_gemm_plan(int layout, int ln, int M, int N, int K, int kind, int* plan) {
+    const GemmPlan p = layout == L_TN ? plan_for<L_TN>(false, M, N, K, 0)
+                                      : plan_for<L_NN>(ln != 0, M, N, K, kind);
+    plan[0] = p.config;
+    plan[1] = p.tiles;
+    plan[2] = p.split;
 }

@@ -33,12 +33,16 @@
 // weight gradients over its sequential row-chunk grid; blocks here run in no
 // order, so every sum over rows is two stages (f32 partials per block or per
 // row split, then one fixed-order reduce; no atomics, runs agree bit for
-// bit).  The chain, device code in vit_block.cuh:
-//   (a) LN rows -> bf16 h  (b) recompute only: fc1 GEMM -> f32 a
-//   (c) dg GEMM (W2 not transposed) with the GELU-gradient epilogue ->
-//       bf16 da, bf16 gel, column partials of the f32 da
-//   (d) dW2, dW1: row-contracting GEMMs + reduce  (e) dh GEMM -> f32
-//   (f) LayerNorm backward + column partials  (g) reduces
+// bit).  The chain, every product vit_block.cuh's gemm_kernel (wgmma fed by
+// a TMA ring) in the layout named:
+//   (a) LN rows -> bf16 h
+//   (b) dg GEMM (NN: W2 not transposed) with the GELU-gradient epilogue ->
+//       bf16 da, bf16 gel, column partials of the f32 da per 64 rows; when
+//       the hidden was not kept, the same kernel recomputes it, a second
+//       product h . W1^T + b1 on the same tile in f32 registers, never stored
+//   (c) dW2, dW1: row-contracting GEMMs (TN), rows split per shape + reduce
+//   (d) dh GEMM (NN) -> f32  (e) LayerNorm backward + column partials
+//   (f) reduces
 //
 // Shape contract (checked by the Python wrapper): rows % 64 == 0,
 // d % 64 == 0, hidden % 64 == 0, 16-byte aligned contiguous tensors.
@@ -67,42 +71,38 @@ extern "C" int sod_fused_ln_mlp(
 }
 
 // Backward.  x, dy: [rows, d] bf16.  a_saved: the forward's bf16 pre-GELU
-// hidden [rows, hidden], or NULL to recompute it in f32 into a_f32.
-// Scratch: h [rows, d] bf16, a_f32 [rows, hidden] f32 (recompute only), da,
-// gel [rows, hidden] bf16, dh [rows, d] f32, part_b1 [rows / 64, hidden] f32,
-// part_w [ceil(rows / split_rows), hidden, d] f32 (split_rows % 32 == 0: the
-// rows per weight-gradient partial), part_ln [rows / 64, 3, d] f32.
-// Outputs: dx [rows, d] bf16; f32 dw_fc1 [hidden, d], db_fc1 [hidden], dw_fc2
-// [d, hidden] (torch (out, in) layout) and dln3 [3, d] = dLN scale, dLN bias,
-// db_fc2.
+// hidden [rows, hidden], or NULL to recompute it in f32 inside the GELU
+// gradient's product.  Scratch: h [rows, d] bf16, da, gel [rows, hidden]
+// bf16, dh [rows, d] f32, part_b1 [rows / 64, hidden] f32, part_w and part_ln
+// f32 of the sizes sod_fused_ln_mlp_bwd_scratch gives.  Outputs: dx [rows, d]
+// bf16; f32 dw_fc1 [hidden, d], db_fc1 [hidden], dw_fc2 [d, hidden] (torch
+// (out, in) layout) and dln3 [3, d] = dLN scale, dLN bias, db_fc2.
 extern "C" int sod_fused_ln_mlp_bwd(
     const void* x, const void* dy, const void* a_saved, const void* ln_w, const void* ln_b,
-    const void* w_fc1, const void* b_fc1, const void* w_fc2, void* h, void* a_f32, void* da,
-    void* gel, void* dh, void* part_b1, void* part_w, void* part_ln, void* dx, void* dw_fc1,
-    void* db_fc1, void* dw_fc2, void* dln3, int rows, int dim, int hidden, int split_rows,
-    float eps, void* stream_ptr) {
+    const void* w_fc1, const void* b_fc1, const void* w_fc2, void* h, void* da, void* gel,
+    void* dh, void* part_b1, void* part_w, void* part_ln, void* dx, void* dw_fc1, void* db_fc1,
+    void* dw_fc2, void* dln3, int rows, int dim, int hidden, float eps, void* stream_ptr) {
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     cudaError_t err = launch_ln_rows(x, ln_w, ln_b, eps, h, rows, dim, stream);
     if (err != cudaSuccess) return (int)err;
-    if (a_saved == nullptr) {
-        err = launch_gemm<EPI_BIAS_F32, false, bf16>(
-            h, nullptr, nullptr, 0.f, w_fc1, b_fc1, nullptr, a_f32, rows, hidden, dim, stream);
-        if (err != cudaSuccess) return (int)err;
-        err = launch_gemm_nn<NN_DGELU, true>(dy, w_fc2, a_f32, da, gel, part_b1, rows, hidden,
-                                             dim, stream);
-    } else {
-        err = launch_gemm_nn<NN_DGELU, false>(dy, w_fc2, a_saved, da, gel, part_b1, rows, hidden,
-                                              dim, stream);
-    }
+    err = launch_gemm_dgelu(dy, w_fc2, a_saved, h, w_fc1, b_fc1, da, gel, part_b1, rows, hidden,
+                            dim, stream);
     if (err != cudaSuccess) return (int)err;
     err = launch_reduce(part_b1, rows / 64, (size_t)hidden, db_fc1, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_tn(dy, gel, part_w, dw_fc2, rows, dim, hidden, split_rows, stream);
+    err = launch_gemm_tn(dy, gel, part_w, dw_fc2, rows, dim, hidden, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_tn(da, h, part_w, dw_fc1, rows, hidden, dim, split_rows, stream);
+    err = launch_gemm_tn(da, h, part_w, dw_fc1, rows, hidden, dim, stream);
     if (err != cudaSuccess) return (int)err;
-    err = launch_gemm_nn<NN_F32, false>(da, w_fc1, nullptr, dh, nullptr, nullptr, rows, dim,
-                                        hidden, stream);
+    err = launch_gemm_nn<EPI_F32>(da, w_fc1, dh, rows, dim, hidden, stream);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_ln_bwd(x, dh, dy, ln_w, eps, dx, part_ln, dln3, rows, dim, stream);
+}
+
+// f32 floats of the backward's partial buffers at `rows` rows: floats[0]
+// part_w (the weight gradients' row splits), floats[1] part_ln
+extern "C" void sod_fused_ln_mlp_bwd_scratch(int rows, int dim, int hidden, long long* floats) {
+    floats[0] = (long long)std::max(gemm_tn_part_floats(rows, dim, hidden),
+                                    gemm_tn_part_floats(rows, hidden, dim));
+    floats[1] = (long long)ln_bwd_blocks(rows) * 3 * dim;
 }

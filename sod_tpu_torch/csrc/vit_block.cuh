@@ -1,18 +1,19 @@
 // Device code of the ViT block kernels, shared by K1 (csrc/fused_block.cu),
 // K3 and K5 (csrc/fused_attn.cu) and K4 (csrc/fused_mlp.cu):
-//   * gemm_kernel: C[M, N] = A[M, K] . W[N, K]^T with an optional LayerNorm
-//     of A's rows and a fused epilogue, the forward projections;
+//   * gemm_kernel: every product of the block, forward and backward, in
+//     three operand layouts (enum Layout):
+//       NT  C[M, N] = A[M, K] . W[N, K]^T, W in torch's (out, in) layout,
+//           with an optional LayerNorm of A's rows: the forward projections;
+//       NN  C[M, N] = A[M, K] . W[K, N], the weight untransposed (g . W):
+//           the backward's input gradients, with the GELU-gradient epilogue;
+//       TN  C[M, N] = A[K, M]^T . B[K, N], contracting the rows: the weight
+//           gradients, the rows split over blocks into f32 partials that
+//           reduce_partials_kernel sums in a fixed order (two stages, no
+//           atomics: runs agree bit for bit);
 //   * attention_kernel: per-head softmax attention over a packed qkv
 //     [B, N, 3D] row layout (attention.cuh's two-pass device code);
-// and, for the backward kernels of K3 and K4:
+// and, for the backward chains of K3 and K4:
 //   * ln_rows_kernel: h = bf16(LayerNorm(x)), the forward's arithmetic;
-//   * gemm_nn_kernel: C[M, N] = A[M, K] . W[K, N], the second operand not
-//     transposed (g . W with W in torch's (out, in) layout), with the
-//     GELU-gradient epilogue;
-//   * gemm_tn_kernel: C[KA, NB] = A[M, KA]^T . B[M, NB], contracting over
-//     the rows (the weight gradients), rows split over blocks into f32
-//     partials that reduce_partials_kernel sums in a fixed order (two
-//     stages, no atomics: runs agree bit for bit);
 //   * ln_bwd_kernel: LayerNorm backward + residual, with per-block partial
 //     column sums for the LayerNorm and bias gradients.
 //
@@ -26,27 +27,39 @@
 //     tiles of 128 x 128 (two consumer warpgroups sharing each W tile),
 //     64 x 128 or 64 x 64, and the column tiles per block, planned per shape
 //     (gemm_plan) so that the grid fills the SMs;
+//   * the layouts differ only in which operand is read K-major and which
+//     MN-major: a K-major tile is [rows][64 k] in 128-byte rows, an MN-major
+//     one [64 k][64 columns] panels in 128-byte rows (W in NN and TN, A in
+//     TN), read by the same descriptors with wgmma's transpose bits set and
+//     16-row steps along k.  Every stage holds the same bytes in each layout;
 //   * a producer warp keeps a ring of 64-deep stages filled by TMA (one
-//     instruction a tile, the hardware writes the swizzle and zero-fills rows
-//     and columns out of bounds), each stage's arrival and release counted on
-//     mbarriers: up to 7 stages in flight while the consumers' products run;
+//     instruction a tile or 64-column panel, the hardware writes the swizzle
+//     and zero-fills rows and columns out of bounds), each stage's arrival
+//     and release counted on mbarriers: up to 7 stages in flight while the
+//     consumers' products run;
 //   * LayerNorm once per row panel: the block loads its rows over all of K
 //     once, normalises them in place (one warp a row, 16-byte groups a
 //     lane; ln_row_stats, the statistics of every LayerNorm here) and keeps
 //     the panel in shared memory for the products of every column tile;
 //     only W streams.  A projection without LN keeps its panel too at
 //     K <= 384, else streams A beside W;
-//   * the epilogue (bias, GELU, residual) on the accumulators' registers,
-//     bias and residuals loaded ahead in groups, bf16 or f32 pairs stored
-//     straight to device memory, while the next tile's loads land.
-// gemm_nn_kernel and gemm_tn_kernel are nvcuda::wmma 16x16x16 bf16 with f32
-// accumulators on padded shared-memory tiles (BM x BN x BK); the attention's
-// products are attention.cuh's (wgmma on register-resident score tiles).
+//   * the epilogue (bias, GELU, residual, the GELU gradient and its column
+//     sums) on the accumulators' registers, bias and residuals loaded ahead
+//     in groups, bf16 or f32 pairs stored straight to device memory, while
+//     the next tile's loads land.  K4's GELU gradient recomputes its f32
+//     hidden as a second product on the same tile (h . W1^T + b1 beside
+//     dy . W2), so the [rows, 4d] f32 hidden never goes to device memory;
+//   * TN: the contracted rows are cut into splits (gemm_tn_plan, a function
+//     of the shape alone) so that tiles x splits fill one wave.
+// The attention's products are attention.cuh's (wgmma on register-resident
+// score tiles).  K8 (csrc/fused_block_int8.cu) keeps its own wmma s8 product
+// on the tile sizes below (BM, BN, CPAD).
 //
 // Shape contract (checked by the Python wrappers): rows M % 64 == 0,
-// N % 64 == 0, K % 32 == 0 (K <= 1024 with LayerNorm), attention rows per
-// image % 64 == 0, head dim in {32, 64, 128}, 16-byte aligned contiguous
-// tensors.  gemm_kernel also takes M % 128 == 64 in its 128-row tiles.
+// N % 64 == 0, K % 32 == 0 (K <= 1024 with LayerNorm; TN: K % 64 == 0),
+// attention rows per image % 64 == 0, head dim in {32, 64, 128}, 16-byte
+// aligned contiguous tensors.  gemm_kernel also takes M % 128 == 64 in its
+// 128-row tiles.
 #pragma once
 
 #include <mma.h>
@@ -54,6 +67,7 @@
 #include <cudaTypedefs.h>   // CUtensorMap, PFN_cuTensorMapEncodeTiled
 
 #include <algorithm>
+#include <type_traits>
 
 #include "attention.cuh"
 
@@ -61,17 +75,8 @@ namespace sod {
 
 using namespace nvcuda;
 
-constexpr int BM = 64, BN = 64, BK = 32;   // the wmma kernels' tiles (and K8's)
-constexpr int APAD = 8;               // bf16 row pad: ldm % 8 == 0, spreads banks
+constexpr int BM = 64, BN = 64;       // K8's wmma tiles
 constexpr int CPAD = 4;               // f32 row pad: ldm % 4 == 0
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
 
 // Epilogues: v = the f32 accumulator, b = bias (bf16), res = residual.
 //   BIAS_BF16: bf16(v + b)                  GELU_BF16: bf16(tanh-GELU(v + b))
@@ -79,8 +84,22 @@ __device__ __forceinline__ void copy16(bf16* dst, const bf16* src) {
 //   RESB_BF16: bf16((x + v) + b), x bf16
 //   BIAS_F32:  f32(v + b)
 //   GELU_SAVE_BF16: GELU_BF16, and bf16(v + b) (the pre-GELU hidden) to out2
+// and without a bias (the backward):
+//   BF16: bf16(v)                           F32: f32(v)
+//   DGELU_BF16: a = res, the kept bf16 pre-GELU hidden; da = v * gelu'(a);
+//       bf16(da) to out, bf16(gelu(a)) to out2, and the column sums of the f32
+//       da over each 64 rows to colsum[M / 64][N]
+//   DGELU_RC: DGELU_BF16 with a = f32(A2 . W2^T + b) recomputed in the same
+//       kernel, a second product on the same tile (A2 [M][K], W2 [N][K]: K4's
+//       h and W1, b its fc1 bias), the f32 hidden never stored
 enum Epilogue { EPI_BIAS_BF16 = 0, EPI_GELU_BF16 = 1, EPI_RES_F32 = 2, EPI_RES_BF16 = 3,
-                EPI_RESB_BF16 = 4, EPI_BIAS_F32 = 5, EPI_GELU_SAVE_BF16 = 6 };
+                EPI_RESB_BF16 = 4, EPI_BIAS_F32 = 5, EPI_GELU_SAVE_BF16 = 6, EPI_BF16 = 7,
+                EPI_F32 = 8, EPI_DGELU_BF16 = 9, EPI_DGELU_RC = 10 };
+
+// Operand layouts of C[M, N] = sum over k of A(m, k) B(k, n), as stored
+enum Layout { L_NT = 0,      // A [M][K], B [N][K]
+              L_NN = 1,      // A [M][K], B [K][N]
+              L_TN = 2 };    // A [K][M], B [K][N]
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -98,21 +117,31 @@ __device__ __forceinline__ float gelu_tanh(float h) {
     return 0.5f * h * (1.f + tanhf(GELU_C0 * (h + GELU_C1 * (h * h * h))));
 }
 
-// d/dh of gelu_tanh (sod_tpu/ops/fused_mlp.py `_gelu_tanh_grad`)
-__device__ __forceinline__ float gelu_tanh_grad(float h) {
+// gelu_tanh(h) and its derivative d/dh (sod_tpu/ops/fused_mlp.py
+// `_gelu_tanh_grad`) from one tanh: the same arithmetic as gelu_tanh
+__device__ __forceinline__ void gelu_tanh_and_grad(float h, float& gelu, float& grad) {
     const float t = tanhf(GELU_C0 * (h + GELU_C1 * (h * h * h)));
     const float dh = GELU_C0 * (1.f + 3.f * GELU_C1 * (h * h));
-    return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * dh;
+    gelu = 0.5f * h * (1.f + t);
+    grad = 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * dh;
 }
 
 // ---------------------------------------------------------------------------
-// The forward GEMM: C[M, N] = epilogue(A[M, K] . W[N, K]^T), W in torch's
-// (out, in) layout, bf16 x bf16 with f32 accumulation on wgmma
+// gemm_kernel: bf16 x bf16 with f32 accumulation on wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int GK = 64;            // k per ring stage: one 128-byte swizzled row of bf16
-// ring stages: a kept panel leaves room for more of the (W only) stages
-__host__ __device__ constexpr int gemm_stages(bool panel) { return panel ? 8 : 6; }
+// The epilogue's class for shared memory and the plan: 0 none, 1 the GELU
+// gradient reading its hidden (column-sum scratch), 2 recomputing it (two
+// products: two panels or A stages, two W tiles a stage)
+__host__ __device__ constexpr int epi_kind(int epi) {
+    return epi == EPI_DGELU_RC ? 2 : epi == EPI_DGELU_BF16 ? 1 : 0;
+}
+// ring stages: a kept panel leaves room for more of the (W only) stages; two
+// products a stage take twice the bytes
+__host__ __device__ constexpr int gemm_stages(bool panel, int kind = 0) {
+    return kind == 2 ? 3 : panel ? 8 : 6;
+}
 constexpr int LN_MAX_DIM = 1024;  // LN forms take K <= 1024 (ops/fused_block.py MAX_DIM)
 constexpr int LN_G = LN_MAX_DIM / 256;   // 8-element groups of a row per lane, at most
 
@@ -121,20 +150,23 @@ constexpr int LN_G = LN_MAX_DIM / 256;   // 8-element groups of a row per lane, 
 // K8's quantiser: the backward sees the forward's h and statistics bit for
 // bit): lane l holds the row's 8-element groups l + 32 j in v[j] (groups at
 // or beyond K / 8 are absent), sums them in that order, then across the warp.
-// f32, two-pass variance; returns the mean and 1 / sqrt(var + eps).
-__device__ __forceinline__ void ln_row_stats(const float (&v)[LN_G][8], int lane, int K, float eps,
+// f32, two-pass variance; returns the mean and 1 / sqrt(var + eps).  NG, the
+// groups a lane can hold, only sizes v: at K <= 256 NG the groups j >= NG
+// are absent anyway, so every NG gives the same arithmetic.
+template <int NG = LN_G>
+__device__ __forceinline__ void ln_row_stats(const float (&v)[NG][8], int lane, int K, float eps,
                                              float& mean, float& rstd) {
     const int G = K / 8;
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < LN_G; ++j)
+    for (int j = 0; j < NG; ++j)
         if (lane + 32 * j < G)
 #pragma unroll
             for (int e = 0; e < 8; ++e) s = __fadd_rn(s, v[j][e]);
     mean = __fdiv_rn(warp_sum(s), (float)K);
     float q = 0.f;
 #pragma unroll
-    for (int j = 0; j < LN_G; ++j)
+    for (int j = 0; j < NG; ++j)
         if (lane + 32 * j < G)
 #pragma unroll
             for (int e = 0; e < 8; ++e) {
@@ -177,7 +209,7 @@ __device__ __forceinline__ void load_group(const float* row, int g, float (&v)[8
 }
 
 // ln_row_stats of a bf16 or f32 row of K <= LN_MAX_DIM values in device memory
-template <typename InT>
+template <typename InT, typename = std::enable_if_t<!std::is_array<InT>::value>>
 __device__ __forceinline__ void ln_row_stats(const InT* __restrict__ row, int lane, int K,
                                              float eps, float& mean, float& rstd) {
     float v[LN_G][8];
@@ -235,11 +267,75 @@ __device__ __forceinline__ void wgmma_wait_pending() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-template <int BNT>
+// d[64 x BNT] (+)= A[64 x 16] . B[16 x BNT], both operands through
+// descriptors; TA / TB: the operand is stored MN-major (wgmma's transpose
+// bits); accumulate == 0 overwrites d with the product
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64t(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128t(float (&d)[16][4], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int BNT, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BNT / 8][4], uint64_t desc_a, uint64_t desc_b,
                                          int accumulate) {
-    if constexpr (BNT == 64) wgmma_ss_n64(d, desc_a, desc_b, accumulate);
-    else wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+    if constexpr (BNT == 64) wgmma_ss_n64t<TA, TB>(d, desc_a, desc_b, accumulate);
+    else wgmma_ss_n128t<TA, TB>(d, desc_a, desc_b, accumulate);
 }
 
 // The LN forms' A panel: the block's BMT rows over all of K, normalised once
@@ -314,11 +410,16 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
     return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
+__host__ __device__ constexpr bool epi_has_bias(int epi) {
+    return epi <= EPI_GELU_SAVE_BF16 || epi == EPI_DGELU_RC;
+}
+__host__ __device__ constexpr bool epi_dgelu(int epi) { return epi_kind(epi) != 0; }
+// the epilogue reads a second [M, N] input (`res`): a residual or the kept hidden
 __host__ __device__ constexpr bool epi_reads_res(int epi) {
-    return epi == EPI_RES_F32 || epi == EPI_RES_BF16 || epi == EPI_RESB_BF16;
+    return epi == EPI_RES_F32 || epi == EPI_RES_BF16 || epi == EPI_RESB_BF16 || epi == EPI_DGELU_BF16;
 }
 
-// the residual pair at element o as f32 (f32 for RES_BF16, else bf16)
+// the pair of `res` at element o as f32 (an f32 tensor for RES_BF16, else bf16)
 template <int EPI>
 __device__ __forceinline__ float2 load_res(const void* __restrict__ res, size_t o) {
     if (EPI == EPI_RES_BF16)
@@ -328,10 +429,11 @@ __device__ __forceinline__ float2 load_res(const void* __restrict__ res, size_t 
 }
 
 // Epilogue of two neighbouring columns (col, col + 1) of one row, in
-// registers: v the f32 accumulators, b the bias, x the residual (read by the
-// RES forms); o = row * N + col.
+// registers: v the f32 accumulators, b the bias, x the pair of `res` (read
+// by the RES and DGELU forms); o = row * N + col.  DGELU leaves the f32 da
+// in v for the column sums.
 template <int EPI>
-__device__ __forceinline__ void epilogue_pair(float v0, float v1, float2 b, float2 x, size_t o,
+__device__ __forceinline__ void epilogue_pair(float& v0, float& v1, float2 b, float2 x, size_t o,
                                               void* __restrict__ out, void* __restrict__ out2) {
     if (EPI == EPI_BIAS_BF16) {
         *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) = pack_bf16(v0 + b.x, v1 + b.y);
@@ -346,54 +448,91 @@ __device__ __forceinline__ void epilogue_pair(float v0, float v1, float2 b, floa
     } else if (EPI == EPI_RES_F32) {
         *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) =
             make_float2((x.x + v0) + b.x, (x.y + v1) + b.y);
-    } else {
+    } else if (EPI == EPI_RES_BF16 || EPI == EPI_RESB_BF16) {
         *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) =
             pack_bf16((x.x + v0) + b.x, (x.y + v1) + b.y);
+    } else if (EPI == EPI_BF16) {
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) = pack_bf16(v0, v1);
+    } else if (EPI == EPI_F32) {
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(v0, v1);
+    } else {                                                        // DGELU
+        float g0, g1, d0, d1;
+        gelu_tanh_and_grad(x.x, g0, d0);
+        gelu_tanh_and_grad(x.y, g1, d1);
+        v0 *= d0;
+        v1 *= d1;
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) = pack_bf16(v0, v1);
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out2) + o) = pack_bf16(g0, g1);
     }
 }
+
+// bytes of the DGELU epilogues' column-sum scratch: [WG][4 warps][BNT] f32
+__host__ __device__ constexpr uint32_t colsum_bytes(int wg, int bn) { return wg * 4 * bn * 4; }
 
 // One block computes `tiles` column tiles of BMT x BNT, one after another,
 // for one row panel of BMT = 64 WG rows: WG consumer warpgroups of 64 rows
 // each (sharing every W tile) and one producer warp.  grid = (ceil(N / BNT /
-// tiles), ceil(M / BMT)): the column blocks of one row panel run side by
-// side, so A comes from device memory about once.  Shared memory (1024-byte
-// aligned):
+// tiles), ceil(M / BMT), splits): the column blocks of one row panel run side
+// by side, so A comes from device memory about once; TN's blocks z contract
+// rows [z k_split, (z + 1) k_split) into the f32 partial out[z][M][N].
+// Shared memory (1024-byte aligned):
 //   PANEL: A panel [ceil(K / 64)][BMT][128 B], then STAGES W stages
 //          [BNT][128 B].  The block's rows over all of K, loaded once (and
 //          with LN normalised once) and read in place by every product of
 //          every column tile; only W streams.  LN forms always take it.
 //   else:  STAGES W stages, then STAGES A stages [BMT][128 B].
-//   then the mbarriers: full[STAGES], empty[STAGES], panel.
+//   then the mbarriers: full[STAGES], empty[STAGES], panel; then, for the
+//   DGELU epilogues, the column-sum scratch.
+// DGELU_RC's second product doubles each: the A2 panel after A's (or each A
+// stage followed by its A2 stage), each W stage followed by its W2 tile.
+// A stage of an MN-major operand (W in NN and TN, A in TN) holds the same
+// bytes as panels of [64 k][64 columns], 8 KB apart: the descriptor's
+// leading offset.
 // The producer walks the jobs (column tile, 64-deep k step) in order: it
 // waits until a stage is empty and starts its TMA loads (128-byte swizzle:
 // the layout the descriptors read), which complete on the stage's full
 // barrier.  The consumers wait for a job's stage to be full, start its four
-// wgmma k16 and release the previous job's stage once those products are
-// done, so up to STAGES - 1 loads and two product groups are in flight; after
-// a tile's last k step they wait for its products and run the epilogue on the
-// accumulators while the next tile's loads land.  Rows >= M arrive as zeros
-// and are never stored.
-template <int EPI, bool LN, typename InT, int WG, int BNT, bool PANEL>
+// wgmma k16 (eight with a second product) and release the previous job's
+// stage once those products are done, so up to STAGES - 1 loads and two
+// product groups are in flight; after a tile's last k step they wait for its
+// products and run the epilogue on the accumulators while the next tile's
+// loads land.  Rows >= M arrive as zeros and are never stored.
+template <int EPI, bool LN, typename InT, int WG, int BNT, bool PANEL, int LAY>
 __global__ void __launch_bounds__(128 * WG + 32)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+            const __grid_constant__ CUtensorMap map_a2, const __grid_constant__ CUtensorMap map_w2,
             const InT* __restrict__ a_in, const bf16* __restrict__ ln_w,
             const bf16* __restrict__ ln_b, float eps, const bf16* __restrict__ bias,
             const void* __restrict__ res, void* __restrict__ out, void* __restrict__ out2,
-            int M, int N, int K, int tiles) {
+            float* __restrict__ colsum, int M, int N, int K, int tiles, int k_split) {
+    constexpr bool DUAL = EPI == EPI_DGELU_RC;
     static_assert(PANEL || !LN, "the LayerNorm forms keep their row panel");
-    constexpr int STAGES = gemm_stages(PANEL), NC = 128 * WG, BMT = 64 * WG;
-    constexpr uint32_t WB = BNT * 128, AB = BMT * 128;     // bytes of one W / A stage
+    static_assert(LAY == L_NT || !LN, "LayerNorm only in the forward layout");
+    static_assert(LAY != L_TN || !PANEL, "the row-contracting layout streams both operands");
+    static_assert(!DUAL || LAY == L_NN, "the recomputing GELU gradient is an NN product");
+    constexpr int STAGES = gemm_stages(PANEL, epi_kind(EPI)), NC = 128 * WG, BMT = 64 * WG;
+    constexpr uint32_t WB = BNT * 128, AB = BMT * 128;     // bytes of one W / A tile
+    constexpr uint32_t WS = DUAL ? 2 * WB : WB, AS = DUAL ? 2 * AB : AB;   // ... of a stage
+    constexpr uint32_t PB = 64 * 128;                      // one 64 x 64 MN-major panel
     constexpr bool TMA_PANEL = PANEL && sizeof(InT) == 2;
+    constexpr int TA = LAY == L_TN, TB = LAY != L_NT;      // MN-major operands
+    // descriptor steps of one k16: 32 bytes along a K-major row, 16 rows of
+    // 128 bytes down an MN-major panel (in the descriptor's 16-byte units)
+    constexpr uint64_t SA = TA ? 128 : 2, SB = TB ? 128 : 2;
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    const uint32_t s0 = smem_u32(align_tiles(smem_raw));
-    const int nk = (K + GK - 1) / GK;
-    const uint32_t sW = PANEL ? s0 + nk * AB : s0;
-    const uint32_t sA = PANEL ? s0 : s0 + STAGES * WB;
-    const uint32_t full = sW + STAGES * WB + (PANEL ? 0 : STAGES * AB), empty = full + 8 * STAGES,
+    unsigned char* const base = align_tiles(smem_raw);
+    const uint32_t s0 = smem_u32(base);
+    const int k0 = LAY == L_TN ? blockIdx.z * k_split : 0;
+    const int nk = ((LAY == L_TN ? min(k_split, K - k0) : K) + GK - 1) / GK;
+    const int nk_panel = (K + GK - 1) / GK;
+    const uint32_t sW = PANEL ? s0 + (DUAL ? 2 : 1) * nk_panel * AB : s0;
+    const uint32_t sA = PANEL ? s0 : s0 + STAGES * WS;
+    const uint32_t full = sW + STAGES * WS + (PANEL ? 0 : STAGES * AS), empty = full + 8 * STAGES,
                    panel_bar = empty + 8 * STAGES;
     const int tid = threadIdx.x, warp_id = tid >> 5, lane = tid & 31;
     const int m0 = blockIdx.y * BMT, ct0 = blockIdx.x * tiles;
     const int n_tiles = min(tiles, N / BNT - ct0), n_jobs = n_tiles * nk;
+    if (LAY == L_TN) out = reinterpret_cast<float*>(out) + (size_t)blockIdx.z * M * N;
 
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) {
@@ -409,15 +548,33 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         // the producer
         if (lane == 0) {
             if (TMA_PANEL) {
-                mbar_expect_tx(panel_bar, nk * AB);
-                for (int kt = 0; kt < nk; ++kt) tma_load_2d(sA + kt * AB, &map_a, kt * GK, m0, panel_bar);
+                mbar_expect_tx(panel_bar, (DUAL ? 2 : 1) * nk * AB);
+                for (int kt = 0; kt < nk; ++kt) {
+                    tma_load_2d(sA + kt * AB, &map_a, kt * GK, m0, panel_bar);
+                    if (DUAL) tma_load_2d(sA + (nk + kt) * AB, &map_a2, kt * GK, m0, panel_bar);
+                }
             }
             for (int j = 0, tile = 0, kt = 0; j < n_jobs; ++j) {
-                const int st = j % STAGES, n0 = (ct0 + tile) * BNT;
+                const int st = j % STAGES, n0 = (ct0 + tile) * BNT, kk = k0 + kt * GK;
+                const uint32_t bar = full + 8 * st;
                 if (j >= STAGES) mbar_wait(empty + 8 * st, ((j / STAGES) - 1) & 1);
-                mbar_expect_tx(full + 8 * st, PANEL ? WB : WB + AB);
-                tma_load_2d(sW + st * WB, &map_w, kt * GK, n0, full + 8 * st);
-                if (!PANEL) tma_load_2d(sA + st * AB, &map_a, kt * GK, m0, full + 8 * st);
+                mbar_expect_tx(bar, PANEL ? WS : WS + AS);
+                if (LAY == L_NT) {
+                    tma_load_2d(sW + st * WS, &map_w, kk, n0, bar);
+                } else {
+                    for (int p = 0; p < BNT / 64; ++p)
+                        tma_load_2d(sW + st * WS + p * PB, &map_w, n0 + 64 * p, kk, bar);
+                }
+                if (DUAL) tma_load_2d(sW + st * WS + WB, &map_w2, kk, n0, bar);
+                if (!PANEL) {
+                    if (LAY == L_TN) {
+                        for (int p = 0; p < WG; ++p)
+                            tma_load_2d(sA + st * AS + p * PB, &map_a, m0 + 64 * p, kk, bar);
+                    } else {
+                        tma_load_2d(sA + st * AS, &map_a, kk, m0, bar);
+                    }
+                    if (DUAL) tma_load_2d(sA + st * AS + AB, &map_a2, kk, m0, bar);
+                }
                 if (++kt == nk) {
                     kt = 0;
                     ++tile;
@@ -443,21 +600,43 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     // step of a tile is peeled, so that each later one releases its
     // predecessor's stage unconditionally.
     float acc[BNT / 8][4];
+    float acc2[DUAL ? BNT / 8 : 1][4];              // DUAL: the recomputed hidden's product
     const int wg = tid >> 7, warp = warp_id & 3, g = lane >> 2, t = lane & 3;
     const int row0 = m0 + wg * 64 + warp * 16 + g;
-    const uint32_t a_wg = sA + wg * 64 * 128;
+    const uint32_t a_wg = sA + wg * 64 * 128;       // K-major rows, or this WG's MN-major panel
     auto mma = [&](int j, int kt, bool first) {
         const int st = j % STAGES;
         mbar_wait(full + 8 * st, (j / STAGES) & 1);
-        const uint64_t da = tile_desc<64>(PANEL ? a_wg + kt * AB : a_wg + st * AB);
-        const uint64_t db = tile_desc<64>(sW + st * WB);
+        const uint64_t da = tile_desc<64>(PANEL ? a_wg + kt * AB : a_wg + st * AS);
+        const uint64_t db = tile_desc<64>(sW + st * WS);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < GK / 16; ++ks)
-            wgmma_ss<BNT>(acc, da + (uint64_t)(ks * 2), db + (uint64_t)(ks * 2), !first || ks > 0);
+            wgmma_ss<BNT, TA, TB>(acc, da + ks * SA, db + ks * SB, !first || ks > 0);
+        if constexpr (DUAL) {
+            const uint64_t da2 = tile_desc<64>(PANEL ? a_wg + (nk + kt) * AB : a_wg + st * AS + AB);
+            const uint64_t db2 = tile_desc<64>(sW + st * WS + WB);
+#pragma unroll
+            for (int ks = 0; ks < GK / 16; ++ks)
+                wgmma_ss<BNT, 0, 0>(acc2, da2 + ks * 2, db2 + ks * 2, !first || ks > 0);
+        }
         wgmma_commit();
     };
+    // DGELU_BF16's kept hidden of the whole tile, loaded before its products
+    // so that the loads land while they run (rows >= M read row M - 1 and
+    // are never stored)
+    constexpr bool PRE = EPI == EPI_DGELU_BF16;
+    float2 xp[PRE ? BNT / 8 : 1][2];
     for (int tile = 0, j = 0; tile < n_tiles; ++tile) {
+        if constexpr (PRE) {
+            const int n0 = (ct0 + tile) * BNT;
+#pragma unroll
+            for (int i = 0; i < BNT / 8; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    xp[i][h] = load_res<EPI>(res, (size_t)min(row0 + 8 * h, M - 1) * N + n0
+                                                      + 8 * i + 2 * t);
+        }
         mma(j++, 0, true);
         for (int kt = 1; kt < nk; ++kt, ++j) {
             mma(j, kt, false);
@@ -469,11 +648,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         float2 bv[BNT / 8];
 #pragma unroll
         for (int i = 0; i < BNT / 8; ++i)
-            bv[i] = bf16x2_to_float2(
-                __ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * i + 2 * t)));
+            bv[i] = epi_has_bias(EPI)
+                ? bf16x2_to_float2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * i + 2 * t)))
+                : make_float2(0.f, 0.f);
         wgmma_wait_pending<0>();
         mbar_arrive_if(empty + 8 * ((j - 1) % STAGES), lane == 0);
         acc_fence(acc);
+        if constexpr (DUAL) acc_fence(acc2);
         // the epilogue on the accumulators: warp w of warpgroup wg holds rows
         // 64 wg + 16 w + g and + 8, columns 8 i + 2 t and + 1.  Residuals are
         // loaded EC column blocks at a time, all in flight together.
@@ -486,9 +667,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int row = row0 + 8 * h;
-                    xv[i][h] = epi_reads_res(EPI) && row < M
-                        ? load_res<EPI>(res, (size_t)row * N + n0 + 8 * (i0 + i) + 2 * t)
-                        : make_float2(0.f, 0.f);
+                    if constexpr (DUAL)          // the hidden a = f32(h . W1^T + b1)
+                        xv[i][h] = make_float2(acc2[i0 + i][2 * h] + bv[i0 + i].x,
+                                               acc2[i0 + i][2 * h + 1] + bv[i0 + i].y);
+                    else if constexpr (PRE)
+                        xv[i][h] = xp[i0 + i][h];
+                    else
+                        xv[i][h] = epi_reads_res(EPI) && row < M
+                            ? load_res<EPI>(res, (size_t)row * N + n0 + 8 * (i0 + i) + 2 * t)
+                            : make_float2(0.f, 0.f);
                 }
 #pragma unroll
             for (int i = 0; i < EC; ++i)
@@ -500,7 +687,35 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
                                            xv[i][h], (size_t)row * N + col, out, out2);
                 }
         }
+        if constexpr (epi_dgelu(EPI)) {
+            // the column sums of the f32 da over this warpgroup's 64 rows
+            // (rows >= M hold zeros), in a fixed order: a thread's two rows,
+            // the eight row groups of a warp by shuffles, the four warps in
+            // order, to colsum[panel of 64 rows][N]
+            float* cs = reinterpret_cast<float*>(base + (panel_bar + 8 - s0 + 15) / 16 * 16)
+                        + wg * 4 * BNT;
+#pragma unroll
+            for (int i = 0; i < BNT / 8; ++i) {
+                float c0 = acc[i][0] + acc[i][2], c1 = acc[i][1] + acc[i][3];
+#pragma unroll
+                for (int o = 4; o < 32; o <<= 1) {
+                    c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+                    c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+                }
+                if (g == 0) {
+                    cs[warp * BNT + 8 * i + 2 * t] = c0;
+                    cs[warp * BNT + 8 * i + 2 * t + 1] = c1;
+                }
+            }
+            asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+            const int c = tid & 127, panel = blockIdx.y * WG + wg;
+            if (c < BNT && panel * 64 < M)
+                colsum[(size_t)panel * N + n0 + c] =
+                    ((cs[c] + cs[BNT + c]) + cs[2 * BNT + c]) + cs[3 * BNT + c];
+            asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+        }
         acc_fence(acc);
+        if constexpr (DUAL) acc_fence(acc2);
     }
 }
 
@@ -523,8 +738,8 @@ attention_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ key_m
                         m ? l + stat : nullptr, blockIdx.x * AQ, N, n_real, scale, smem);
 }
 
-// Configurations of the forward GEMM: warpgroups (64 rows each), columns,
-// and whether A's row panel is kept (PANEL) or streamed beside W.
+// Configurations of gemm_kernel: warpgroups (64 rows each), columns, and
+// whether A's row panel is kept (PANEL) or streamed beside W.
 struct GemmConfig { int wg, bn; bool panel; };
 constexpr int GEMM_CONFIGS = 6;
 constexpr GemmConfig GEMM_CONFIG[GEMM_CONFIGS] = {
@@ -542,25 +757,37 @@ inline int sm_count() {
     return n;
 }
 
-inline size_t gemm_smem(const GemmConfig& c, int K) {
-    const size_t rows = 64 * c.wg, nk = (K + GK - 1) / GK, stages = gemm_stages(c.panel);
-    return TILE_ALIGN + (c.panel ? nk * rows * 128 + stages * c.bn * 128
-                                 : stages * (rows + c.bn) * 128)
-           + (2 * stages + 1) * 8;                       // the mbarriers
+// kind: epi_kind of the epilogue (its column-sum scratch, its second product)
+inline size_t gemm_smem(const GemmConfig& c, int K, int kind) {
+    const size_t rows = 64 * c.wg, nk = (K + GK - 1) / GK, stages = gemm_stages(c.panel, kind);
+    const size_t two = kind == 2 ? 2 : 1;
+    return TILE_ALIGN + two * (c.panel ? nk * rows * 128 + stages * c.bn * 128
+                                       : stages * (rows + c.bn) * 128)
+           + (2 * stages + 1) * 8                        // the mbarriers
+           + (kind ? 16 + colsum_bytes(c.wg, c.bn) : 0);
 }
 
-inline bool gemm_config_fits(int i, bool ln, int N, int K) {
+inline bool gemm_config_fits(int i, bool ln, int N, int K, int kind = 0) {
     if (i < 0 || i >= GEMM_CONFIGS) return false;
     const GemmConfig& c = GEMM_CONFIG[i];
-    return (c.panel || !ln) && N % c.bn == 0 && gemm_smem(c, K) <= GEMM_SMEM_MAX;
+    return (c.panel || !ln) && N % c.bn == 0 && gemm_smem(c, K, kind) <= GEMM_SMEM_MAX;
 }
 
-struct GemmPlan { int config, tiles; };
+// config: an index of GEMM_CONFIG; tiles: column tiles per block; split: the
+// contracted rows per block of a TN product (0: all of them)
+struct GemmPlan { int config, tiles, split; };
 
-// The configuration and column tiles per block for a shape, a rule read off
-// the times of every configuration and split at K1's and K4's shapes on an
-// H100 (chip_smoke.py phase 3 prints each shape's plan).  A's row panel is
-// kept with LN and at K <= 384, else streamed beside W.  Tiles:
+// The configuration and column tiles per block for an NT or NN shape, a rule
+// read off the times of every configuration and split at K1's, K3's and K4's
+// shapes on an H100 (chip_smoke.py phase 3 prints each shape's plan;
+// tools/gemm_sweep.py times the others).  A's row panel is kept with LN and
+// at K <= 384, else streamed beside W.  Tiles:
+//   * the GELU gradient (kind 1, 2), whose epilogue does more than its
+//     products: 64 x 64 (kind 1) or 64 x 128 (kind 2: two products a tile),
+//     the columns cut into as many groups as give the grid three blocks an
+//     SM (kind 1: three sit on an SM at once, one's products beside
+//     another's epilogue; kind 2 fills an SM's shared memory alone: three
+//     waves of shorter blocks measured faster than one or two longer);
 //   * a form without LN with a wave of 128-row panels or more: 128 x 128
 //     streamed, one a block;
 //   * 128 x 128 where there are sms / 4 panels of 128 rows, the tile fits
@@ -570,23 +797,52 @@ struct GemmPlan { int config, tiles; };
 //     else 64 x 64.
 // The columns are cut into as many groups as one wave holds beside the row
 // panels (at least one): the tiles per block.
-inline GemmPlan gemm_plan(bool ln, int M, int N, int K) {
+inline GemmPlan gemm_plan(bool ln, int M, int N, int K, int kind = 0) {
     const int sms = sm_count(), p128 = (M + 127) / 128, p64 = (M + 63) / 64;
     const bool panel = ln || K <= 384;
     auto groups = [&](int n_ct, int panels) {
         return std::min(n_ct, std::max(1, sms / panels));
     };
-    if (!ln && p128 >= sms && gemm_config_fits(3, ln, N, K)) return {3, 1};
+    auto fits = [&](int i) { return gemm_config_fits(i, ln, N, K, kind); };
+    if (kind) {
+        int c = kind == 1 ? (panel ? 2 : 5) : (panel ? 1 : 4);
+        if (!fits(c)) c = panel ? 2 : 5;
+        if (!fits(c)) return {-1, 1, 0};
+        const int n_ct = N / GEMM_CONFIG[c].bn;
+        const int g = std::min(n_ct, std::max(1, (3 * sms + p64 - 1) / p64));
+        return {c, (n_ct + g - 1) / g, 0};
+    }
+    if (!ln && p128 >= sms && fits(3)) return {3, 1, 0};
     const int c128 = panel ? 0 : 3;
-    if (p128 >= sms / 4 && gemm_config_fits(c128, ln, N, K)) {
+    if (p128 >= sms / 4 && fits(c128)) {
         const int n_ct = N / 128, g = groups(n_ct, p128);
-        if (p128 >= sms || n_ct % g == 0) return {c128, (n_ct + g - 1) / g};
+        if (p128 >= sms || n_ct % g == 0) return {c128, (n_ct + g - 1) / g, 0};
     }
     int c = panel ? 1 : 4;                                          // 64 x 128
-    if (p64 < sms / 4 || !gemm_config_fits(c, ln, N, K)) c = panel ? 2 : 5;   // 64 x 64
-    if (!gemm_config_fits(c, ln, N, K)) return {-1, 1};
+    if (p64 < sms / 4 || !fits(c)) c = panel ? 2 : 5;               // 64 x 64
+    if (!fits(c)) return {-1, 1, 0};
     const int n_ct = N / GEMM_CONFIG[c].bn, g = groups(n_ct, p64);
-    return {c, (n_ct + g - 1) / g};
+    return {c, (n_ct + g - 1) / g, 0};
+}
+
+// The configuration and row split of a TN product C[M, N] over K contracted
+// rows, read off the same sweep: streamed tiles, one a block, the rows cut
+// into as many splits of a multiple of 64 rows as one wave holds beside the
+// tiles (at least one); 128 x 128 unless its splits would hold fewer than
+// 1024 rows (16 k steps), then 64 x 128 (64 x 64 where N takes no 128-column
+// tiles).  A function of the shape alone, so runs agree bit for bit.
+inline GemmPlan gemm_tn_plan(int M, int N, int K) {
+    const int sms = sm_count();
+    auto split_of = [&](int c) {
+        const GemmConfig& cfg = GEMM_CONFIG[c];
+        const int tiles = ((M + 64 * cfg.wg - 1) / (64 * cfg.wg)) * (N / cfg.bn);
+        const int want = std::max(1, std::min(sms / tiles, K / GK));
+        return ((K + want - 1) / want + GK - 1) / GK * GK;
+    };
+    if (N % 128) return {5, 1, split_of(5)};
+    const int s = split_of(3);
+    if (s >= 16 * GK || s >= K) return {3, 1, s};
+    return {4, 1, split_of(4)};
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime's entry-point query (no -lcuda)
@@ -618,39 +874,66 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, int rows, 
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int EPI, bool LN, typename InT, int WG, int BNT, bool PANEL>
-cudaError_t launch_gemm_config(const void* a, const void* ln_w, const void* ln_b, float eps,
-                               const void* w, const void* bias, const void* res, void* out,
-                               int M, int N, int K, int tiles, cudaStream_t stream, void* out2) {
-    CUtensorMap map_a{}, map_w{};
-    cudaError_t err = make_tensor_map(&map_w, w, N, K, BNT);
-    if (err == cudaSuccess && sizeof(InT) == 2) err = make_tensor_map(&map_a, a, M, K, 64 * WG);
+// The operands of one gemm_kernel launch: C[M, N] over K.  a, w: the product
+// (LN parameters for the LN forms); bias; res: the residual or kept hidden;
+// out, out2; colsum: the DGELU column partials; a2, w2: DGELU_RC's second
+// product (K4's h [M][K] and W1 [N][K]).
+struct GemmArgs {
+    const void *a, *ln_w, *ln_b, *w, *bias, *res;
+    void *out, *out2, *colsum;
+    const void *a2, *w2;
+    float eps;
+    int M, N, K;
+};
+
+template <int EPI, bool LN, typename InT, int WG, int BNT, bool PANEL, int LAY>
+cudaError_t launch_gemm_config(const GemmArgs& g, GemmPlan p, cudaStream_t stream) {
+    CUtensorMap map_a{}, map_w{}, map_a2{}, map_w2{};
+    cudaError_t err;
+    if (LAY == L_NT) {
+        err = make_tensor_map(&map_w, g.w, g.N, g.K, BNT);
+        if (err == cudaSuccess && sizeof(InT) == 2) err = make_tensor_map(&map_a, g.a, g.M, g.K, 64 * WG);
+    } else {
+        err = make_tensor_map(&map_w, g.w, g.K, g.N, 64);
+        if (err == cudaSuccess)
+            err = LAY == L_TN ? make_tensor_map(&map_a, g.a, g.K, g.M, 64)
+                              : make_tensor_map(&map_a, g.a, g.M, g.K, 64 * WG);
+    }
+    if (EPI == EPI_DGELU_RC) {
+        if (err == cudaSuccess) err = make_tensor_map(&map_a2, g.a2, g.M, g.K, 64 * WG);
+        if (err == cudaSuccess) err = make_tensor_map(&map_w2, g.w2, g.N, g.K, BNT);
+    }
     if (err != cudaSuccess) return err;
-    const size_t smem = gemm_smem(GemmConfig{WG, BNT, PANEL}, K);
-    auto kernel = gemm_kernel<EPI, LN, InT, WG, BNT, PANEL>;
+    const size_t smem = gemm_smem(GemmConfig{WG, BNT, PANEL}, g.K, epi_kind(EPI));
+    auto kernel = gemm_kernel<EPI, LN, InT, WG, BNT, PANEL, LAY>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int groups = (N / BNT + tiles - 1) / tiles;
-    kernel<<<dim3(groups, (M + 64 * WG - 1) / (64 * WG)), 128 * WG + 32, smem, stream>>>(
-        map_a, map_w, static_cast<const InT*>(a), static_cast<const bf16*>(ln_w),
-        static_cast<const bf16*>(ln_b), eps, static_cast<const bf16*>(bias), res, out, out2, M, N,
-        K, tiles);
+    const int groups = (g.N / BNT + p.tiles - 1) / p.tiles;
+    const int splits = LAY == L_TN ? (g.K + p.split - 1) / p.split : 1;
+    kernel<<<dim3(groups, (g.M + 64 * WG - 1) / (64 * WG), splits), 128 * WG + 32, smem, stream>>>(
+        map_a, map_w, map_a2, map_w2, static_cast<const InT*>(g.a),
+        static_cast<const bf16*>(g.ln_w), static_cast<const bf16*>(g.ln_b), g.eps,
+        static_cast<const bf16*>(g.bias), g.res, g.out, g.out2, static_cast<float*>(g.colsum),
+        g.M, g.N, g.K, p.tiles, p.split);
     return cudaGetLastError();
 }
 
-// C[M, N] = epilogue(A . W^T) on the caller's stream, in the configuration
-// gemm_plan picks for the shape.
-template <int EPI, bool LN, typename InT>
-cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float eps,
-                        const void* w, const void* bias, const void* res, void* out,
-                        int M, int N, int K, cudaStream_t stream, void* out2 = nullptr) {
-    const GemmPlan p = gemm_plan(LN, M, N, K);
-    if (p.config < 0) return cudaErrorInvalidValue;
+// The plan of every gemm_kernel launch of a layout
+template <int LAY>
+inline GemmPlan plan_for(bool ln, int M, int N, int K, int kind) {
+    const GemmPlan p = LAY == L_TN ? gemm_tn_plan(M, N, K) : gemm_plan(ln, M, N, K, kind);
+    return p;
+}
+
+// C[M, N] in layout LAY on the caller's stream, in the configuration the
+// plan picks for the shape
+template <int EPI, bool LN, typename InT, int LAY>
+cudaError_t launch_gemm_layout(const GemmArgs& g, cudaStream_t stream) {
+    const GemmPlan p = plan_for<LAY>(LN, g.M, g.N, g.K, epi_kind(EPI));
 #define SOD_GEMM_CASE(i, WG, BNT, PANEL)                                                      \
     case i:                                                                                 \
-        if constexpr (PANEL || !LN)                                                         \
-            return launch_gemm_config<EPI, LN, InT, WG, BNT, PANEL>(                        \
-                a, ln_w, ln_b, eps, w, bias, res, out, M, N, K, p.tiles, stream, out2);     \
+        if constexpr ((PANEL || !LN) && !(PANEL && LAY == L_TN))                            \
+            return launch_gemm_config<EPI, LN, InT, WG, BNT, PANEL, LAY>(g, p, stream);     \
         return cudaErrorInvalidValue;
     switch (p.config) {
         SOD_GEMM_CASE(0, 2, 128, true)
@@ -662,6 +945,114 @@ cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float
         default: return cudaErrorInvalidValue;
     }
 #undef SOD_GEMM_CASE
+}
+
+// C[M, N] = epilogue(A . W^T) on the caller's stream (the forward, NT)
+template <int EPI, bool LN, typename InT>
+cudaError_t launch_gemm(const void* a, const void* ln_w, const void* ln_b, float eps,
+                        const void* w, const void* bias, const void* res, void* out,
+                        int M, int N, int K, cudaStream_t stream, void* out2 = nullptr) {
+    return launch_gemm_layout<EPI, LN, InT, L_NT>(
+        GemmArgs{a, ln_w, ln_b, w, bias, res, out, out2, nullptr, nullptr, nullptr, eps, M, N, K},
+        stream);
+}
+
+// C[M, N] = A[M, K] . W[K, N] (NN; W a torch (out, in) weight used
+// untransposed), epilogue EPI_BF16 or EPI_F32
+template <int EPI>
+cudaError_t launch_gemm_nn(const void* a, const void* w, void* out, int M, int N, int K,
+                           cudaStream_t stream) {
+    return launch_gemm_layout<EPI, false, bf16, L_NN>(
+        GemmArgs{a, nullptr, nullptr, w, nullptr, nullptr, out, nullptr, nullptr, nullptr,
+                 nullptr, 0.f, M, N, K}, stream);
+}
+
+// K4's GELU gradient, NN: da = (dy[M, K] . W2[K, N]) * gelu'(a) with a the
+// kept bf16 hidden `a_kept` [M, N], or (a_kept NULL) a = f32(h[M, K] . W1^T +
+// b1) recomputed in the kernel (W1 [N, K]); bf16 da to `da`, bf16 gelu(a) to
+// `gel`, the column sums of the f32 da per 64 rows to colsum [M / 64][N] f32
+inline cudaError_t launch_gemm_dgelu(const void* dy, const void* w2, const void* a_kept,
+                                     const void* h, const void* w1, const void* b1, void* da,
+                                     void* gel, void* colsum, int M, int N, int K,
+                                     cudaStream_t stream) {
+    if (a_kept != nullptr)
+        return launch_gemm_layout<EPI_DGELU_BF16, false, bf16, L_NN>(
+            GemmArgs{dy, nullptr, nullptr, w2, nullptr, a_kept, da, gel, colsum, nullptr,
+                     nullptr, 0.f, M, N, K}, stream);
+    return launch_gemm_layout<EPI_DGELU_RC, false, bf16, L_NN>(
+        GemmArgs{dy, nullptr, nullptr, w2, b1, nullptr, da, gel, colsum, h, w1, 0.f, M, N, K},
+        stream);
+}
+
+// f32 floats of a TN product's partials: [splits][KA][NB], none for one split
+inline size_t gemm_tn_part_floats(int M, int KA, int NB) {
+    const GemmPlan p = plan_for<L_TN>(false, KA, NB, M, 0);
+    const int splits = (M + p.split - 1) / p.split;
+    return splits > 1 ? (size_t)splits * KA * NB : 0;
+}
+
+// out[e] = the sum of part[p][e] over p in a fixed order (runs agree bit for
+// bit), one thread an element, the parts in order: for few parts over many
+// elements (the TN products' row splits)
+__global__ void __launch_bounds__(THREADS)
+reduce_partials_kernel(const float* __restrict__ part, int n_parts, size_t n,
+                       float* __restrict__ out) {
+    const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
+    if (e >= n) return;
+    float s = 0.f;
+    for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * n + e];
+    out[e] = s;
+}
+
+// ... and for many parts over few elements (column sums per row block): a
+// block sums 32 elements, warp c the parts c, c + 8, ... in order (eight
+// loads of each thread in flight), then warp 0 the eight sums in order
+__global__ void __launch_bounds__(256)
+reduce_partials_wide_kernel(const float* __restrict__ part, int n_parts, size_t n,
+                            float* __restrict__ out) {
+    __shared__ float sums[8][32];
+    const int lane = threadIdx.x & 31, c = threadIdx.x >> 5;
+    const size_t e = (size_t)blockIdx.x * 32 + lane;
+    float s = 0.f;
+    if (e < n) {
+#pragma unroll 8
+        for (int p = c; p < n_parts; p += 8) s += __ldg(part + (size_t)p * n + e);
+    }
+    sums[c][lane] = s;
+    __syncthreads();
+    if (c == 0 && e < n) {
+        float t = sums[0][lane];
+#pragma unroll
+        for (int i = 1; i < 8; ++i) t += sums[i][lane];
+        out[e] = t;
+    }
+}
+
+// the second stage of every reduction over rows; the kernel by the number
+// of parts (measured on an H100: each is faster on its side of 32 parts)
+inline cudaError_t launch_reduce(const void* part, int n_parts, size_t n, void* out,
+                                 cudaStream_t stream) {
+    if (n_parts >= 32)
+        reduce_partials_wide_kernel<<<(unsigned)((n + 31) / 32), 256, 0, stream>>>(
+            static_cast<const float*>(part), n_parts, n, static_cast<float*>(out));
+    else
+        reduce_partials_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+            static_cast<const float*>(part), n_parts, n, static_cast<float*>(out));
+    return cudaGetLastError();
+}
+
+// C[KA, NB] = A[M, KA]^T . B[M, NB] in f32 (TN): partials over the plan's
+// row splits into `part` (gemm_tn_part_floats of f32 scratch; unused for one
+// split), then their sum.
+inline cudaError_t launch_gemm_tn(const void* a, const void* b, void* part, void* out, int M,
+                                  int KA, int NB, cudaStream_t stream) {
+    const GemmPlan p = plan_for<L_TN>(false, KA, NB, M, 0);
+    const int splits = (M + p.split - 1) / p.split;
+    cudaError_t err = launch_gemm_layout<EPI_F32, false, bf16, L_TN>(
+        GemmArgs{a, nullptr, nullptr, b, nullptr, nullptr, splits > 1 ? part : out, nullptr,
+                 nullptr, nullptr, nullptr, 0.f, KA, NB, M}, stream);
+    if (err != cudaSuccess || splits == 1) return err;
+    return launch_reduce(part, splits, (size_t)KA * NB, out, stream);
 }
 
 template <int HD>
@@ -693,10 +1084,8 @@ inline cudaError_t launch_attention(const void* qkv, const void* key_mask, void*
 
 
 // ---------------------------------------------------------------------------
-// Device code of the backward kernels (K3 and K4)
+// LayerNorm rows of the backward chains (K3 and K4)
 // ---------------------------------------------------------------------------
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAt;
 
 // h[M, K] = bf16(LayerNorm(x[M, K])), one warp per row: the arithmetic of
 // gemm_kernel's LN panel (ln_row_stats and ln_group_apply on the same lane
@@ -723,217 +1112,120 @@ ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_w,
     }
 }
 
-// Epilogues of gemm_nn_kernel: v = the f32 accumulator.
-//   NN_BF16: bf16(v)            NN_F32: f32(v)
-//   NN_DGELU: a = the pre-GELU hidden (f32 when A_F32, else the saved bf16);
-//             da = v * gelu'(a); bf16(da) to out, bf16(gelu(a)) to out2, and
-//             the tile's column sums of the f32 da to colsum[blockIdx.x][N]
-enum EpilogueNN { NN_BF16 = 0, NN_F32 = 1, NN_DGELU = 2 };
-
-// C[M, N] = A[M, K] . W[K, N], both row-major bf16: W is a torch Linear
-// weight (out, in) = (K, N) used untransposed, i.e. g . W.
-// grid = (M / BM, N / BN); each warp owns a 32x32 quarter of the tile.
-template <int EPI, bool A_F32>
-__global__ void __launch_bounds__(THREADS)
-gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-               const void* __restrict__ pre, void* __restrict__ out, void* __restrict__ out2,
-               float* __restrict__ colsum, int N, int K) {
-    __shared__ __align__(128) bf16 As[BM * (BK + APAD)];
-    __shared__ __align__(128) bf16 Ws[BK * (BN + APAD)];
-    __shared__ __align__(128) float Cs[BM * (BN + CPAD)];
-    constexpr int lda = BK + APAD, ldw = BN + APAD, ldc = BN + CPAD;
-
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int i = tid; i < BM * BK / 8; i += THREADS) {
-            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-            copy16(&As[r * lda + c], &a[(size_t)(m0 + r) * K + k0 + c]);
-        }
-        for (int i = tid; i < BK * BN / 8; i += THREADS) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            copy16(&Ws[r * ldw + c], &w[(size_t)(k0 + r) * N + n0 + c]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragA fa[2];
-            FragB fb[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * lda + kk, lda);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb[j], Ws + kk * ldw + wn + j * 16, ldw);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(Cs + (wm + i * 16) * ldc + wn + j * 16, acc[i][j], ldc,
-                                    wmma::mem_row_major);
-    __syncthreads();
-
-    for (int i = tid; i < BM * BN; i += THREADS) {
-        const int r = i / BN, c = i % BN;
-        const size_t o = (size_t)(m0 + r) * N + n0 + c;
-        const float v = Cs[r * ldc + c];
-        if (EPI == NN_BF16) {
-            reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(v);
-        } else if (EPI == NN_F32) {
-            reinterpret_cast<float*>(out)[o] = v;
-        } else {
-            const float h = A_F32 ? reinterpret_cast<const float*>(pre)[o]
-                                  : __bfloat162float(reinterpret_cast<const bf16*>(pre)[o]);
-            const float da = v * gelu_tanh_grad(h);
-            reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(da);
-            reinterpret_cast<bf16*>(out2)[o] = __float2bfloat16(gelu_tanh(h));
-            Cs[r * ldc + c] = da;
-        }
-    }
-    if (EPI == NN_DGELU) {
-        __syncthreads();
-        if (tid < BN) {
-            float s = 0.f;
-            for (int r = 0; r < BM; ++r) s += Cs[r * ldc + tid];
-            colsum[(size_t)blockIdx.x * N + n0 + tid] = s;
-        }
-    }
-}
-
-// Partials of C[KA, NB] = A[M, KA]^T . B[M, NB] (A, B row-major bf16): block
-// (i, j, s) contracts rows [s * rows_per_split, (s + 1) * rows_per_split) (cut
-// at M) of A's columns [64 i, 64 i + 64) against B's columns [64 j, 64 j + 64)
-// and writes the f32 tile to part[s][KA][NB].  grid = (KA / 64, NB / 64, S).
-__global__ void __launch_bounds__(THREADS)
-gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, float* __restrict__ part,
-               int M, int KA, int NB, int rows_per_split) {
-    __shared__ __align__(128) bf16 As[BK * (BM + APAD)];
-    __shared__ __align__(128) bf16 Bs[BK * (BN + APAD)];
-    constexpr int lda = BM + APAD, ldb = BN + APAD;
-
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int i0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const int r_begin = blockIdx.z * rows_per_split;
-    const int r_end = min(M, r_begin + rows_per_split);
-
-    FragC acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-        for (int i = tid; i < BK * BM / 8; i += THREADS) {
-            const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-            copy16(&As[r * lda + c], &a[(size_t)(r0 + r) * KA + i0 + c]);
-            copy16(&Bs[r * ldb + c], &b[(size_t)(r0 + r) * NB + j0 + c]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragAt fa[2];
-            FragB fb[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], As + kk * lda + wm + i * 16, lda);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb[j], Bs + kk * ldb + wn + j * 16, ldb);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-    float* tile = part + (size_t)blockIdx.z * KA * NB;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(tile + (size_t)(i0 + wm + i * 16) * NB + j0 + wn + j * 16,
-                                    acc[i][j], NB, wmma::mem_row_major);
-}
-
-// out[e] = sum over s, in order, of part[s][e]: the second stage of every
-// reduction over rows.  grid = ceil(n / THREADS).
-__global__ void __launch_bounds__(THREADS)
-reduce_partials_kernel(const float* __restrict__ part, int n_parts, size_t n,
-                       float* __restrict__ out) {
-    const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
-    if (e >= n) return;
-    float s = 0.f;
-    for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * n + e];
-    out[e] = s;
-}
-
-// LayerNorm backward + residual for 64 rows (16 per warp, one after another),
-// mean and inv from ln_row_stats (the forward's, bit for bit):
+// LayerNorm backward + residual, one warp a row (rows warp, warp + 8, ... of
+// the block's LNB_ROWS), lane l holding the row's 8-element groups l + 32 j
+// in registers (NG of them at most, K <= 256 NG) as ln_row_stats reads them;
+// x, dh and g are each read once:
+//   mean, inv = ln_row_stats (the forward's, bit for bit)
 //   xhat = (x - mean) * inv; dxhat = dh * ln_w
 //   dx = bf16(g + inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
-// and this block's column sums over its rows, to part[blockIdx.x][3][K]:
-// dh * xhat (the LayerNorm scale's gradient), dh (its bias's), g (the output
-// bias's: dbproj or db2).  x, g: bf16 [M, K]; dh: f32 [M, K].
-// grid = M / 64; dynamic shared memory 4 * 3 * K floats.
-__global__ void __launch_bounds__(THREADS)
+// Each warp adds dh * xhat (the LayerNorm scale's gradient), dh (its bias's)
+// and g (the output bias's: dbproj or db2) of its rows into its own
+// shared-memory columns, each lane its own groups as float4 (no two lanes
+// share a bank line); then the block sums its warps in order into
+// part[blockIdx.x][3][K].  x, g: bf16 [M, K]; dh: f32 [M, K].
+constexpr int LNB_WARPS = 8, LNB_ROWS = 32;
+template <int NG>
+constexpr size_t ln_bwd_smem() { return (size_t)LNB_WARPS * 3 * NG * 2 * 32 * sizeof(float4); }
+
+template <int NG>
+__global__ void __launch_bounds__(LNB_WARPS * 32, NG <= 2 ? 4 : 6 - NG)   // <= 64 registers at d 512
 ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dh,
               const bf16* __restrict__ g, const bf16* __restrict__ ln_w, float eps,
-              bf16* __restrict__ dx, float* __restrict__ part, int K) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    float* acc = reinterpret_cast<float*>(smem);             // [4 warps][3][K]
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    float* mine = acc + (size_t)warp * 3 * K;
-    for (int c = lane; c < 3 * K; c += 32) mine[c] = 0.f;
+              bf16* __restrict__ dx, float* __restrict__ part, int M, int K) {
+    extern __shared__ float4 acc4[];        // [warp][3][NG][2][32 lanes]
+    constexpr int PER_WARP = 3 * NG * 2 * 32;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, G = K / 8;
+    float4* mine = acc4 + warp * PER_WARP + lane;
+#pragma unroll
+    for (int i = 0; i < 3 * NG * 2; ++i) mine[32 * i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-    for (int rr = 0; rr < 16; ++rr) {
-        const size_t r = (size_t)blockIdx.x * 64 + warp * 16 + rr;
-        const bf16* xr = x + r * K;
-        const float* dhr = dh + r * K;
-        const bf16* gr = g + r * K;
+    const int r_end = min(M, (int)(blockIdx.x + 1) * LNB_ROWS);
+#pragma unroll 1
+    for (int r = blockIdx.x * LNB_ROWS + warp; r < r_end; r += LNB_WARPS) {
+        const size_t o = (size_t)r * K;
+        float v[NG][8], d[NG][8];
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+            if (lane + 32 * j < G) {
+                load_group(x + o, lane + 32 * j, v[j]);
+                load_group(dh + o, lane + 32 * j, d[j]);
+            }
         float mean, inv;
-        ln_row_stats(xr, lane, K, eps, mean, inv);
+        ln_row_stats<NG>(v, lane, K, eps, mean, inv);
+        // pass 1: xhat in place of x, the scale's and bias's column sums
+        // (dh * xhat, dh), then dxhat = dh * ln_w in place of dh.  Packed
+        // bf16 pairs (ln_w here, g below) are widened one pair at a time.
         float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < K; c += 32) {
-            const float xhat = (to_f32(xr[c]) - mean) * inv;
-            const float dxhat = dhr[c] * __bfloat162float(ln_w[c]);
-            s1 += dxhat;
-            s2 += dxhat * xhat;
-        }
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+            if (lane + 32 * j < G) {
+                const uint4 w8 = *reinterpret_cast<const uint4*>(ln_w + 8 * (lane + 32 * j));
+                const uint32_t w2[4] = {w8.x, w8.y, w8.z, w8.w};
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[j][e] = (v[j][e] - mean) * inv;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    float4* a = mine + 32 * (j * 2 + h);
+                    const int e = 4 * h;
+                    float4 t = a[0];
+                    t.x += d[j][e] * v[j][e]; t.y += d[j][e + 1] * v[j][e + 1];
+                    t.z += d[j][e + 2] * v[j][e + 2]; t.w += d[j][e + 3] * v[j][e + 3];
+                    a[0] = t;
+                    t = a[32 * 2 * NG];
+                    t.x += d[j][e]; t.y += d[j][e + 1]; t.z += d[j][e + 2]; t.w += d[j][e + 3];
+                    a[32 * 2 * NG] = t;
+                }
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const float2 w = bf16x2_to_float2(w2[e / 2]);
+                    d[j][e] *= e % 2 ? w.y : w.x;                     // dxhat
+                    s1 += d[j][e];
+                    s2 += d[j][e] * v[j][e];
+                }
+            }
         const float m1 = warp_sum(s1) / K, m2 = warp_sum(s2) / K;
-        for (int c = lane; c < K; c += 32) {
-            const float xhat = (to_f32(xr[c]) - mean) * inv;
-            const float d = dhr[c];
-            const float dxhat = d * __bfloat162float(ln_w[c]);
-            const float gv = __bfloat162float(gr[c]);
-            dx[r * K + c] = __float2bfloat16(gv + inv * (dxhat - m1 - xhat * m2));
-            mine[c] += d * xhat;
-            mine[K + c] += d;
-            mine[2 * K + c] += gv;
+        // pass 2: dx, and the output bias's column sums (g)
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+            const int gi = lane + 32 * j;
+            if (gi >= G) continue;
+            const uint4 g8 = *reinterpret_cast<const uint4*>(g + o + 8 * gi);
+            const uint32_t g2[4] = {g8.x, g8.y, g8.z, g8.w};
+            uint32_t y[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float2 gv = bf16x2_to_float2(g2[q]);
+                y[q] = pack_bf16(gv.x + inv * (d[j][2 * q] - m1 - v[j][2 * q] * m2),
+                                 gv.y + inv * (d[j][2 * q + 1] - m1 - v[j][2 * q + 1] * m2));
+            }
+            *reinterpret_cast<uint4*>(dx + o + 8 * gi) = make_uint4(y[0], y[1], y[2], y[3]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float4* a = mine + 32 * (j * 2 + h) + 32 * 4 * NG;
+                const float2 lo = bf16x2_to_float2(g2[2 * h]), hi = bf16x2_to_float2(g2[2 * h + 1]);
+                float4 t = *a;
+                t.x += lo.x; t.y += lo.y; t.z += hi.x; t.w += hi.y;
+                *a = t;
+            }
         }
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < 3 * K; c += THREADS)
-        part[(size_t)blockIdx.x * 3 * K + c] =
-            ((acc[c] + acc[3 * K + c]) + acc[6 * K + c]) + acc[9 * K + c];
+    // entry i = ((q * NG + j) * 2 + h) * 32 + l: columns 8 (l + 32 j) + 4 h .. + 3 of sum q
+    for (int i = threadIdx.x; i < PER_WARP; i += LNB_WARPS * 32) {
+        const int l = i & 31, h = (i >> 5) & 1, j = (i >> 6) % NG, q = (i >> 6) / NG;
+        if (l + 32 * j >= G) continue;
+        float4 s = acc4[i];
+#pragma unroll
+        for (int w = 1; w < LNB_WARPS; ++w) {
+            const float4 u = acc4[w * PER_WARP + i];
+            s.x += u.x; s.y += u.y; s.z += u.z; s.w += u.w;
+        }
+        *reinterpret_cast<float4*>(part + ((size_t)blockIdx.x * 3 + q) * K + 8 * (l + 32 * j) + 4 * h) = s;
+    }
 }
+
+inline int ln_bwd_blocks(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
 
 inline cudaError_t launch_ln_rows(const void* x, const void* ln_w, const void* ln_b, float eps,
                                   void* h, int M, int K, cudaStream_t stream) {
@@ -943,46 +1235,35 @@ inline cudaError_t launch_ln_rows(const void* x, const void* ln_w, const void* l
     return cudaGetLastError();
 }
 
-template <int EPI, bool A_F32>
-cudaError_t launch_gemm_nn(const void* a, const void* w, const void* pre, void* out, void* out2,
-                           void* colsum, int M, int N, int K, cudaStream_t stream) {
-    gemm_nn_kernel<EPI, A_F32><<<dim3(M / BM, N / BN), THREADS, 0, stream>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w), pre, out, out2,
-        static_cast<float*>(colsum), N, K);
-    return cudaGetLastError();
-}
-
-inline cudaError_t launch_reduce(const void* part, int n_parts, size_t n, void* out,
-                                 cudaStream_t stream) {
-    reduce_partials_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-        static_cast<const float*>(part), n_parts, n, static_cast<float*>(out));
-    return cudaGetLastError();
-}
-
-// C[KA, NB] = A[M, KA]^T . B[M, NB] in f32: partials over row splits into
-// `part` ([ceil(M / rows_per_split)][KA][NB] f32 scratch), then their sum.
-inline cudaError_t launch_gemm_tn(const void* a, const void* b, void* part, void* out, int M,
-                                  int KA, int NB, int rows_per_split, cudaStream_t stream) {
-    const int splits = (M + rows_per_split - 1) / rows_per_split;
-    gemm_tn_kernel<<<dim3(KA / BM, NB / BN, splits), THREADS, 0, stream>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(part), M,
-        KA, NB, rows_per_split);
-    cudaError_t err = cudaGetLastError();
+template <int NG>
+cudaError_t launch_ln_bwd_ng(const void* x, const void* dh, const void* g, const void* ln_w,
+                             float eps, void* dx, void* part, int M, int K, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel<NG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)ln_bwd_smem<NG>());
     if (err != cudaSuccess) return err;
-    return launch_reduce(part, splits, (size_t)KA * NB, out, stream);
+    ln_bwd_kernel<NG><<<ln_bwd_blocks(M), LNB_WARPS * 32, ln_bwd_smem<NG>(), stream>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(dh), static_cast<const bf16*>(g),
+        static_cast<const bf16*>(ln_w), eps, static_cast<bf16*>(dx), static_cast<float*>(part),
+        M, K);
+    return cudaGetLastError();
 }
 
 // dx and out3 = [dLN scale, dLN bias, d(output bias)] (f32 [3][K]); part:
-// [M / 64][3][K] f32 scratch
+// [ln_bwd_blocks(M)][3][K] f32 scratch
 inline cudaError_t launch_ln_bwd(const void* x, const void* dh, const void* g, const void* ln_w,
                                  float eps, void* dx, void* part, void* out3, int M, int K,
                                  cudaStream_t stream) {
-    ln_bwd_kernel<<<M / 64, THREADS, (size_t)4 * 3 * K * sizeof(float), stream>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(dh), static_cast<const bf16*>(g),
-        static_cast<const bf16*>(ln_w), eps, static_cast<bf16*>(dx), static_cast<float*>(part), K);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err;
+    switch ((K + 255) / 256) {
+        case 1: err = launch_ln_bwd_ng<1>(x, dh, g, ln_w, eps, dx, part, M, K, stream); break;
+        case 2: err = launch_ln_bwd_ng<2>(x, dh, g, ln_w, eps, dx, part, M, K, stream); break;
+        case 3: err = launch_ln_bwd_ng<3>(x, dh, g, ln_w, eps, dx, part, M, K, stream); break;
+        case 4: err = launch_ln_bwd_ng<4>(x, dh, g, ln_w, eps, dx, part, M, K, stream); break;
+        default: return cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return err;
-    return launch_reduce(part, M / 64, (size_t)3 * K, out3, stream);
+    return launch_reduce(part, ln_bwd_blocks(M), (size_t)3 * K, out3, stream);
 }
 
 }  // namespace sod

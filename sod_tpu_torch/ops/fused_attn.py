@@ -187,7 +187,19 @@ def _train_kernels():
                                              ctypes.c_int]
                     + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                     + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    return fwd, bwd
+    scratch = lib.sod_fused_ln_attn_bwd_scratch
+    scratch.restype = None
+    scratch.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong)]
+    return fwd, bwd, scratch
+
+
+def bwd_scratch_floats(rows: int, d: int) -> Tuple[int, int]:
+    """f32 elements of the backward's partial buffers at ``rows`` rows:
+    (the weight gradients' row splits, the LayerNorm backward's blocks), as
+    the kernels' plan gives them."""
+    out = (ctypes.c_longlong * 2)()
+    _train_kernels()[2](rows, d, out)
+    return out[0], out[1]
 
 
 def _count(kind: str) -> None:
@@ -265,8 +277,9 @@ def train_backward_cuda(x: torch.Tensor, g: torch.Tensor,
     dqkv = torch.empty(rows, 3 * d, device=dev, dtype=bf16)
     dh = torch.empty(rows, d, device=dev, dtype=f32)
     colsum = torch.empty(rows // 16, 3 * d, device=dev, dtype=f32)
-    part_w = torch.empty(b, 3 * d, d, device=dev, dtype=f32)
-    part_ln = torch.empty(rows // 64, 3, d, device=dev, dtype=f32)
+    n_w, n_ln = bwd_scratch_floats(rows, d)
+    part_w = torch.empty(max(n_w, 1), device=dev, dtype=f32)
+    part_ln = torch.empty(n_ln, device=dev, dtype=f32)
     dx = torch.empty_like(x)
     dwqkv = torch.empty(3 * d, d, device=dev, dtype=f32)
     dbqkv = torch.empty(3 * d, device=dev, dtype=f32)

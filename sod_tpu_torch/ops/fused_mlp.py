@@ -39,7 +39,6 @@ from sod_tpu_torch.ops.fused_block import MAX_DIM
 from sod_tpu_torch.ops.layers import layer_norm
 
 ROWS = 64                      # the kernel's row tile: rows are padded to it
-SPLIT_ROWS = 512               # rows per weight-gradient partial (% 32 == 0)
 
 launches = 0                   # forward kernel-chain launches, one per call
 save_launches = 0              # those of them that also wrote the hidden
@@ -60,9 +59,21 @@ def _kernels():
     fwd.restype = bwd.restype = ctypes.c_int
     fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                     + [ctypes.c_float, ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 4
+    bwd.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 3
                     + [ctypes.c_float, ctypes.c_void_p])
-    return fwd, bwd
+    scratch = lib.sod_fused_ln_mlp_bwd_scratch
+    scratch.restype = None
+    scratch.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+    return fwd, bwd, scratch
+
+
+def bwd_scratch_floats(rows: int, d: int, hidden: int) -> Tuple[int, int]:
+    """f32 elements of the backward's partial buffers at ``rows`` rows:
+    (the weight gradients' row splits, the LayerNorm backward's blocks), as
+    the kernels' plan gives them."""
+    out = (ctypes.c_longlong * 2)()
+    _kernels()[2](rows, d, hidden, out)
+    return out[0], out[1]
 
 
 def _weights(block) -> List[torch.Tensor]:
@@ -155,25 +166,24 @@ def backward_cuda(x2d: torch.Tensor, dy: torch.Tensor,
     bf16, f32 = torch.bfloat16, torch.float32
     ln_w, ln_b, w1, b1, w2, _ = weights
     h = torch.empty(rows, d, device=dev, dtype=bf16)
-    a_f32 = (None if a_saved is not None
-             else torch.empty(rows, hidden, device=dev, dtype=f32))
     da = torch.empty(rows, hidden, device=dev, dtype=bf16)
     gel = torch.empty_like(da)
     dh = torch.empty(rows, d, device=dev, dtype=f32)
     part_b1 = torch.empty(rows // 64, hidden, device=dev, dtype=f32)
-    part_w = torch.empty(-(-rows // SPLIT_ROWS), hidden, d, device=dev, dtype=f32)
-    part_ln = torch.empty(rows // 64, 3, d, device=dev, dtype=f32)
+    n_w, n_ln = bwd_scratch_floats(rows, d, hidden)
+    part_w = torch.empty(max(n_w, 1), device=dev, dtype=f32)
+    part_ln = torch.empty(n_ln, device=dev, dtype=f32)
     dx = torch.empty_like(x2d)
     dw1 = torch.empty(hidden, d, device=dev, dtype=f32)
     db1 = torch.empty(hidden, device=dev, dtype=f32)
     dw2 = torch.empty(d, hidden, device=dev, dtype=f32)
     dln3 = torch.empty(3, d, device=dev, dtype=f32)
-    tensors = [x2d, dy, a_saved, ln_w, ln_b, w1, b1, w2, h, a_f32, da, gel, dh,
+    tensors = [x2d, dy, a_saved, ln_w, ln_b, w1, b1, w2, h, da, gel, dh,
                part_b1, part_w, part_ln, dx, dw1, db1, dw2, dln3]
     check_aligned(tensors)
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     with torch.cuda.device(dev):
-        rc = _kernels()[1](*ptrs, rows, d, hidden, SPLIT_ROWS, eps,
+        rc = _kernels()[1](*ptrs, rows, d, hidden, eps,
                            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_ln_mlp backward launch failed: cudaError {rc}")
