@@ -103,17 +103,26 @@ Run right after phase 5, beside the bf16 service of phase 4:
    (B=8, 785 tokens padded to 896, d 384), unmasked and masked, and at
    d 768 (12 heads) and d 192 (3 heads) on 200 of 256 tokens: the output
    within two bf16 ulps, and the int8 codes of each of the four quantisers
-   that differ from the plain version's, counted; the row-quantise launch
-   alone on f32 rows (codes and scales equal) and the s8 product launch
-   alone against ``torch._int_mm`` with the same epilogue (equal; both
-   timed, a yardstick); K8 against K1 on the same block (the quantisation
-   error); K8, its plain version and K1 timed in turns at B=1 and B=8;
+   that differ from the plain version's, counted; the kernel launches of
+   one block call, from a profile (at most 6); the row-quantise launch
+   alone on f32 rows (codes and scales equal) and the s8 product on given
+   codes against ``torch._int_mm`` with the same epilogue (equal); the
+   chain's four s8 products alone at B=8's 7168 rows (QKV with LN1, proj
+   with the f32 residual, fc1 with LN2 and GELU, fc2 from the f32 hidden
+   and fc1's row maxima), each against its plain version (codes that
+   differ counted, outputs within K8's bounds), two runs bit for bit, its
+   plan equal to ``s8_plan``'s, and timed from CUDA graphs beside its plain
+   version, ``torch._int_mm`` on its codes (a yardstick, not a route), the
+   bf16 form of the same product and its bound; K8 against K1 on the same
+   block (the quantisation error); K8, its plain version and K1 timed in
+   turns at B=1 and B=8;
 15. int8 serving: the service with ``quantize: int8`` booted as phase 4's,
    12 K8 launches per forward and none of K1, agreement with the same
    service through the plain version and, printed, with the bf16 service on
    the same weights (objectness correlation, binarised-mask IoU); B=1
-   latency and B=8 img/s of both services in turns; a profile of the int8
-   B=8 forward with K8's share; three ``/predict`` requests; ``python -m
+   latency and B=8 img/s of both services in turns; profiles of the int8
+   and the bf16 B=8 forward (device busy of each, K8's share split into
+   its s8 products and attention); three ``/predict`` requests; ``python -m
    sod_tpu_torch.cli.predict``'s ``main`` with ``--quantize int8`` over five
    PNGs (two with one stem) in batches of 4, its files checked.
 
@@ -1249,8 +1258,9 @@ def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step", watch
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / n:8.3f} ms/{unit} "
               f"x{e.count // n:<5d} {e.key[:90]}")
-    groups = {"the port's kernels": ("flash_", "gemm_kernel", "attention_kernel", "attn_bwd_",
-                                     "ln_rows_", "ln_bwd_", "reduce_partials_", "quant_rows_", "sweep_", "ub_count"),
+    groups = {"the port's kernels": ("flash_", "gemm_kernel", "gemm_s8_kernel", "attention_kernel",
+                                     "attn_bwd_", "ln_rows_", "ln_bwd_", "reduce_partials_",
+                                     "quant_rows_", "sweep_", "ub_band_", "ub_sum_"),
               "cuBLAS GEMMs": ("gemm", "xmma", "cutlass"), "copies and casts": ("copy",)}
     shares = {g: 0.0 for g in (*groups, "other")}
     for e in kernels:
@@ -2311,6 +2321,130 @@ K8 = {"name": "fused_vit_block_int8", "route": "cuda",
 # than one code)
 K8_MAX_ULPS, K8_FIRST_FLIPS, K8_LATER_FLIPS, K8_MIN_CORR_K1 = 2, 1e-4, 5e-3, 0.999
 SERVE_N = 785                            # tokens of a 224 px image at patch 8
+K8_MAX_LAUNCHES = 6                      # kernel launches of one K8 block call, at most
+S8 = dict(route="cuda", source="sod_tpu_torch/csrc/vit_block.cuh",
+          replaces="sod_tpu/ops/fused_block_int8.py:129")
+# K8's four s8 products alone at B=8 (8 x 896 = 7168 rows), d 384, hidden
+# 1536: (form, N, K, the bf16 form of the same product)
+S8_ROWS = 7168
+S8_FORMS = (("qkv", 1152, 384, "bias_bf16"), ("proj", 384, 384, "res_f32"),
+            ("fc1", 1536, 384, "gelu_bf16"), ("fc2", 384, 1536, "res_bf16"))
+
+
+def s8_form_bound(form: str, m: int, n: int, k: int) -> dict:
+    """The least time the card could take for one of K8's s8 products: 2 m
+    n k operations at the s8 peak, against the rows it quantises (bf16 for
+    QKV and proj, f32 for fc1 and fc2), the int8 weight, its f32 scales and
+    bias, the LN parameters, the residual, the output and fc1's row maxima
+    (written by fc1, read by fc2), each moved once."""
+    a_bytes = 2 if form in ("qkv", "proj") else 4
+    res_bytes = {"proj": 2, "fc2": 4}.get(form, 0)
+    out_bytes = 2 if form in ("qkv", "fc2") else 4
+    part = m * (n if form == "fc1" else k) // 64 * 4 if form in ("fc1", "fc2") else 0
+    n_bytes = (m * k * a_bytes + n * k + 8 * n + (8 * k if form in ("qkv", "fc1") else 0)
+               + m * n * (res_bytes + out_bytes) + part)
+    return roofline(2.0 * m * n * k, n_bytes, PEAK_INT8_OPS)
+
+
+def block_launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches, from a profile."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def s8_forms_check(rng):
+    """Phase 14's four s8 products alone at ``S8_ROWS`` rows; returns {form:
+    (max_abs, ms, plain_ms, bound, int_mm_ms)}."""
+    import torch
+
+    from sod_tpu_torch.ops import fused_block_int8 as fq
+    from sod_tpu_torch.ops import gemm as G
+
+    def mk(shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale).to(
+            device="cuda", dtype=dtype)
+
+    m, report, part = S8_ROWS, {}, None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x1 = mk((m, 384), 2.0)
+    for form, n, k, bf16_epi in S8_FORMS:
+        a = mk((m, k), 1.0, fq.S8_FORMS[form][0])
+        w32 = mk((n, k), 0.02)
+        wq, ws = fq.quantize_weight(w32)
+        bias = mk((n,), 0.02)
+        kw = {}
+        if form in ("qkv", "fc1"):
+            kw["ln"] = (1 + mk((k,), 0.1), mk((k,), 0.1))
+        if form == "proj":
+            kw["res"] = mk((m, n), 1.0, torch.bfloat16)
+        if form == "fc2":
+            a = fq.qgemm_reference("fc1", x1, *fq.quantize_weight(mk((k, 384), 0.05)),
+                                   mk((k,), 0.02), ln=(1 + mk((384,), 0.1), mk((384,), 0.1)))[0]
+            part = a.abs().reshape(m, -1, fq.PART_COLS).amax(-1)
+            kw.update(res=x1, part=part)
+        sk, sr = {}, {}
+        before = fq.form_launches
+        got, got_part = fq.qgemm(form, a, wq, ws, bias, scratch=sk, **kw)
+        again = fq.qgemm(form, a, wq, ws, bias, **kw)[0]
+        torch.cuda.synchronize()
+        if fq.form_launches - before != 2:
+            raise AssertionError(f"qgemm counted {fq.form_launches - before} launches for 2 calls")
+        ref, ref_part = fq.qgemm_reference(form, a, wq, ws, bias, scratch=sr, **kw)
+        flips = int((sk["q"] != sr["q"]).sum())
+        max_abs = float((got.float() - ref.float()).abs().max())
+        # LayerNorm's sums run in another order in the plain version, so the
+        # LN forms may flip a code at a .5 boundary (and fc1's tanh is the
+        # card's, not torch's): their outputs within K8's two bf16 ulps at
+        # the output's magnitude.  proj and fc2 quantise identical values
+        # with the same rounded steps: code for code and bit for bit
+        limit = K8_MAX_ULPS * bf16_ulp_at(ref) if "ln" in kw else 0.0
+        share = flips / sk["q"].numel()
+        ok = (bool(torch.isfinite(got).all()) and max_abs <= limit and torch.equal(got, again)
+              and share <= (K8_FIRST_FLIPS if "ln" in kw else 0.0))
+        if form == "fc1":
+            ok = ok and float((got_part - ref_part).abs().max()) <= limit
+        elem = fq.S8_ROW_ELEM[form]
+        plan, mirror = fq.kernel_plan(m, n, k, elem), fq.s8_plan(m, n, k, elem, sms)
+        ok = ok and plan == mirror
+        qa = sk["q"]
+        w16, b16 = w32.to(torch.bfloat16), bias.to(torch.bfloat16)
+        a16 = a.to(torch.float32 if bf16_epi == "gelu_bf16" else torch.bfloat16)
+        ln16 = tuple(t.to(torch.bfloat16) for t in kw["ln"]) if "ln" in kw else None
+        res16 = None
+        if form == "proj":
+            res16 = kw["res"]
+        elif form == "fc2":
+            res16 = x1
+        kern = lambda: fq.qgemm(form, a, wq, ws, bias, **kw)             # noqa: E731
+        plain = lambda: fq.qgemm_reference(form, a, wq, ws, bias, **kw)  # noqa: E731
+        lib = lambda: torch._int_mm(qa, wq.t())                          # noqa: E731
+        bf16 = lambda: G.gemm(a16, w16, b16, bf16_epi, ln=ln16, res=res16)  # noqa: E731
+        # from CUDA graphs, in turns: plain, kernel, _int_mm, bf16, bf16,
+        # _int_mm, kernel, plain
+        t = [graph_ms(f, 5 if f is plain else 20) for f in (plain, kern, lib, bf16, bf16, lib,
+                                                            kern, plain)]
+        ms, plain_ms, lib_ms, bf16_ms = ((t[1] + t[6]) / 2, (t[0] + t[7]) / 2,
+                                         (t[2] + t[5]) / 2, (t[3] + t[4]) / 2)
+        bound = s8_form_bound(form, m, n, k)
+        print(f"  s8 {form:4s} M {m} N {n:4d} K {k:4d} (plan {plan}, mirror {mirror}): max_abs "
+              f"{max_abs:.4g} (<= {limit:.4g}), codes that differ {flips} ({share:.2e}), runs "
+              f"equal; kernel {ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+              f"bf16 form {bf16_ms:.4f} ms ({ms / bf16_ms:.2f}x), plain {plain_ms:.3f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, {ms / bound['bound_ms']:.2f}x) "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"the s8 {form} product disagrees with its plain version, "
+                                 f"between runs, or its plan with the mirror")
+        report[form] = (max_abs, ms, plain_ms, bound, lib_ms)
+    return report
 
 
 def quantized(blk32):
@@ -2323,7 +2457,8 @@ def quantized(blk32):
 
 def int8_kernel_check():
     """Phase 14: K8 against its plain version; returns the worst max_abs,
-    {B: (K8 ms, plain ms, K1 ms)} and K8's bound at B=8."""
+    {B: (K8 ms, plain ms, K1 ms)}, K8's bound at B=8 and the s8 products'
+    report (``s8_forms_check``)."""
     import copy
 
     import torch
@@ -2377,6 +2512,14 @@ def int8_kernel_check():
             check(f"B=2 N=200 (pad 256) d={dd} heads={hh} masked", tokens(2, 256, dd), bq, hh,
                   200, key_mask[:2, :256].contiguous())
 
+        # the kernel launches of one block call: the chain's length
+        bq = quantized(make_block(rng, d, h, True, torch.float32))
+        n_launch = block_launches(lambda: fq.fused_vit_block_int8(x, bq, h, SERVE_N))
+        print(f"  one K8 block call launches {n_launch} kernels (at most {K8_MAX_LAUNCHES}: "
+              f"four s8 products and the attention)", flush=True)
+        if n_launch > K8_MAX_LAUNCHES:
+            raise AssertionError(f"K8 launched {n_launch} kernels a block")
+
         # the quantise launch alone on identical f32 rows: codes and scales equal.
         # Rows of mixed magnitude, a zero row (the amax floor) and a row of exact
         # .5 ties at scale 1 (round half to even)
@@ -2414,6 +2557,8 @@ def int8_kernel_check():
         if n_diff:
             raise AssertionError("the s8 product differs from the exact integer product")
 
+        forms = s8_forms_check(rng)
+
         # K8 against K1 on the same block: the quantisation error
         blk32 = make_block(rng, d, h, True, torch.float32)
         bq, blk16 = quantized(blk32), copy.deepcopy(blk32).to(torch.bfloat16)
@@ -2449,8 +2594,9 @@ def int8_kernel_check():
                      other_ops_ms=2 * c["scores"] / PEAK_BF16_FLOPS * 1e3)
     phase(14, f"K8 matches its plain version (output within {K8_MAX_ULPS} bf16 ulps; share of "
               f"codes that differ <= {K8_FIRST_FLIPS} at the first quantiser, <= "
-              f"{K8_LATER_FLIPS} after it); quantiser and s8 product alone exact")
-    return worst, timings, bound
+              f"{K8_LATER_FLIPS} after it), {n_launch} launches a block; quantiser and s8 "
+              f"product alone exact; its four s8 products alone match their plain versions")
+    return worst, timings, bound, forms
 
 
 def int8_serving_check(svc16, cfg16):
@@ -2528,12 +2674,17 @@ def int8_serving_check(svc16, cfg16):
               f"{lat['B=1'][1]:.3f} ms; B=8 int8 {lat['B=8'][0]:.3f} ms "
               f"({8e3 / lat['B=8'][0]:.1f} img/s), bf16 {lat['B=8'][1]:.3f} ms "
               f"({8e3 / lat['B=8'][1]:.1f} img/s)", flush=True)
-        profile_steps(lambda _: svc.forward_u8(batch), None, 10, lat["B=8"][0],
-                      unit="forward", watch={
-                          "K8 (s8 products, row quantisers, attention)":
-                          ("qgemm_kernel", "quant_rows_kernel", "attention_kernel"),
-                          "of it the s8 products": ("qgemm_kernel",),
-                          "of it the row quantisers": ("quant_rows_kernel",)})
+        print("  the int8 B=8 forward:", flush=True)
+        busy8 = profile_steps(lambda _: svc.forward_u8(batch), None, 10, lat["B=8"][0],
+                              unit="forward", watch={
+                                  "K8 (s8 products with their quantisers, attention)":
+                                  ("gemm_s8_kernel", "attention_kernel"),
+                                  "of it the s8 products": ("gemm_s8_kernel",)})["busy_ms"]
+        print("  the bf16 B=8 forward:", flush=True)
+        busy16 = profile_steps(lambda _: svc16.forward_u8(batch), None, 10, lat["B=8"][1],
+                               unit="forward", watch={"K1": ("gemm_kernel", "attention_kernel")}
+                               )["busy_ms"]
+        print(f"  device busy per B=8 forward: int8 {busy8} ms, bf16 {busy16} ms", flush=True)
 
         predict_requests(svc, cfg, "K8")
 
@@ -2589,7 +2740,7 @@ def main():
     try:
         requests_phase(svc, cfg)
         # beside the bf16 service while it is up
-        k8_worst, k8_times, k8_bound = int8_kernel_check()
+        k8_worst, k8_times, k8_bound, k8_forms = int8_kernel_check()
         k8_launches = int8_serving_check(svc, cfg)
     finally:
         svc.close()
@@ -2656,6 +2807,11 @@ def main():
                    name=name if name.startswith("ln_") else f"gemm_{name}")
         report.append(entry(src, n_launches, err, ms, plain_ms, bound, lib_ms,
                             launches_rule=rule, **extra))
+    # K8's s8 products alone at B=8 (device time, from CUDA graphs), launched
+    # inside K8's chain: one of each per K8 launch
+    for name, (err, ms, plain_ms, bound, lib_ms) in k8_forms.items():
+        report.append(entry(dict(S8, name=f"gemm_s8_{name}"), k8_launches, err, ms, plain_ms,
+                            bound, lib_ms, launches_rule="one per fused_vit_block_int8 launch"))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Device code of the ViT block kernels, shared by K1 (csrc/fused_block.cu),
-// K3 and K5 (csrc/fused_attn.cu) and K4 (csrc/fused_mlp.cu):
+// K3 and K5 (csrc/fused_attn.cu), K4 (csrc/fused_mlp.cu) and K8
+// (csrc/fused_block_int8.cu):
 //   * gemm_kernel: every product of the block, forward and backward, in
 //     three operand layouts (enum Layout):
 //       NT  C[M, N] = A[M, K] . W[N, K]^T, W in torch's (out, in) layout,
@@ -10,6 +11,9 @@
 //           gradients, the rows split over blocks into f32 partials that
 //           reduce_partials_kernel sums in a fixed order (two stages, no
 //           atomics: runs agree bit for bit);
+//   * gemm_s8_kernel: K8's four projections, s8 x s8 -> s32 on the same
+//     machinery (NT, producer warp, TMA ring, swizzled descriptors), with
+//     the row quantisers in its prologue and K8's f32 epilogues;
 //   * attention_kernel: per-head softmax attention over a packed qkv
 //     [B, N, 3D] row layout (attention.cuh's two-pass device code);
 // and, for the backward chains of K3 and K4:
@@ -52,8 +56,7 @@
 //   * TN: the contracted rows are cut into splits (gemm_tn_plan, a function
 //     of the shape alone) so that tiles x splits fill one wave.
 // The attention's products are attention.cuh's (wgmma on register-resident
-// score tiles).  K8 (csrc/fused_block_int8.cu) keeps its own wmma s8 product
-// on the tile sizes below (BM, BN, CPAD).
+// score tiles).
 //
 // Shape contract (checked by the Python wrappers): rows M % 64 == 0,
 // N % 64 == 0, K % 32 == 0 (K <= 1024 with LayerNorm; TN: K % 64 == 0),
@@ -61,8 +64,6 @@
 // aligned contiguous tensors.  gemm_kernel also takes M % 128 == 64 in its
 // 128-row tiles.
 #pragma once
-
-#include <mma.h>
 
 #include <cudaTypedefs.h>   // CUtensorMap, PFN_cuTensorMapEncodeTiled
 
@@ -72,11 +73,6 @@
 #include "attention.cuh"
 
 namespace sod {
-
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 64;       // K8's wmma tiles
-constexpr int CPAD = 4;               // f32 row pad: ldm % 4 == 0
 
 // Epilogues: v = the f32 accumulator, b = bias (bf16), res = residual.
 //   BIAS_BF16: bf16(v + b)                  GELU_BF16: bf16(tanh-GELU(v + b))
@@ -858,19 +854,41 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
     return fn;
 }
 
-// The tensor map of a row-major bf16 [rows, cols] matrix, read in boxes of
-// 64 columns (128 bytes, swizzled as the descriptors expect) x box_rows rows
+// The tensor map of a row-major bf16 (s8: int8 codes) [rows, cols] matrix,
+// read in boxes of 128 bytes of columns (64 bf16, 128 codes; swizzled as the
+// descriptors expect) x box_rows rows
 inline cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                                   int box_rows) {
+                                   int box_rows, bool s8 = false) {
     const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
     if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t elem_bytes = s8 ? 1 : sizeof(bf16);
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-    const cuuint32_t box[2] = {(cuuint32_t)GK, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult r = encode(map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              2, const_cast<void*>(ptr), dims,
                               strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major bf16 or f32 [rows, cols] matrix read in
+// unswizzled boxes of box_cols elements x box_rows rows: gemm_s8_kernel's
+// prologue jobs, whose rows the consumers read in place
+inline cudaError_t make_rows_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                                 int box_rows, int elem_bytes, int box_cols) {
+    const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+    const CUresult r = encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              2, const_cast<void*>(ptr), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1082,6 +1100,709 @@ inline cudaError_t launch_attention(const void* qkv, const void* key_mask, void*
     }
 }
 
+// ---------------------------------------------------------------------------
+// gemm_s8_kernel: K8's products, s8 x s8 with s32 accumulation on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int QK = 128;           // codes of K per ring stage: one 128-byte swizzled row
+constexpr int QG_MAX_STAGES = 8;  // ring stages of W, at most (a power of two)
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+
+// 0.5 h (1 + tanh(c0 (h + c1 h^3))) with every step rounded
+__device__ __forceinline__ float gelu_tanh_rn(float h) {
+    const float h3 = __fmul_rn(__fmul_rn(h, h), h);
+    const float t = tanhf(__fmul_rn(GELU_C0, __fadd_rn(h, __fmul_rn(GELU_C1, h3))));
+    return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, t));
+}
+
+// K8's row quantiser: s = max(amax, 1e-8) / 127, q = clip(rint(v / s), +-127)
+__device__ __forceinline__ float quant_scale(float amax) {
+    return __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+}
+// The codes of 8 values, clip(rint(v / sc), +-127), packed little-endian
+// into two words, without a division: with rc = RN(1 / sc) (__frcp_rn),
+// q0 = RN(v rc) lies within an ulp of v / sc, the remainder v - sc q0 is
+// exact in one FMA, and RN(q0 + r rc) is the correctly rounded quotient
+// __fdiv_rn(v, sc) (Markstein's theorem: CUDA's own division, less its
+// branch for operands out of range, which these are not: sc >= 1e-8 / 127
+// and |v / sc| <= 127.5, and a subnormal v codes as 0 either way).  Rounding
+// is one add: for |q| < 2^22, q + 1.5 * 2^23 rounds to the integer nearest q
+// (ties to even, rint's rule) and holds it, two's complement, in its low
+// mantissa bits, the code's byte; clamping before rounding gives the same
+// code as after (+-127 are integers).  Six full-rate instructions a value on
+// one straight path, bit for bit the codes of clip(rint(__fdiv_rn(v, sc))).
+constexpr float ROUND_MAGIC = 12582912.f;          // 1.5 * 2^23
+__device__ __forceinline__ uint2 quant8(const float (&v)[8], float sc, float rc) {
+    uint32_t c[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        const float q0 = __fmul_rn(v[e], rc);
+        const float q = __fmaf_rn(__fmaf_rn(-sc, q0, v[e]), rc, q0);
+        c[e] = __float_as_uint(__fadd_rn(fminf(fmaxf(q, -127.f), 127.f), ROUND_MAGIC));
+    }
+    return make_uint2(__byte_perm(__byte_perm(c[0], c[1], 0x0040), __byte_perm(c[2], c[3], 0x0040), 0x5410),
+                      __byte_perm(__byte_perm(c[4], c[5], 0x0040), __byte_perm(c[6], c[7], 0x0040), 0x5410));
+}
+
+// LayerNorm of one 8-element group with f32 parameters (w, b: the group's
+// 8 of each), every step rounded: ((v - mean) * rstd) * w + b
+__device__ __forceinline__ void ln_group_f32(float (&v)[8], float mean, float rstd,
+                                             const float (&w)[8], const float (&b)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+        v[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[e], mean), rstd), w[e]), b[e]);
+}
+
+// Where an s8 product's A codes come from (its prologue):
+//   QP_CODES:    int8 codes [M][K] by TMA, their row scales from device memory
+//   QP_LN_BF16:  bf16 rows, LayerNorm (f32 parameters), quantised
+//   QP_BF16:     bf16 rows quantised
+//   QP_LN_F32:   f32 rows, LayerNorm, quantised
+//   QP_F32_PART: f32 rows quantised, each row's amax the max of its maxima
+//                per 64 columns that the producing epilogue wrote
+enum QPrologue { QP_CODES = 0, QP_LN_BF16 = 1, QP_BF16 = 2, QP_LN_F32 = 3, QP_F32_PART = 4 };
+// Epilogues: v = f32(acc) * row_scale * col_scale, b = bias (f32).
+//   Q_BIAS_BF16: bf16(v + b)                Q_RES_F32: f32((x0 + v) + b), x0 bf16
+//   Q_GELU_F32:  f32(tanh-GELU(v + b)), and the row maxima of its |value| per
+//                64 columns to out_part [M][N / 64]
+//   Q_RES_BF16:  bf16((x1 + v) + b), x1 f32
+enum QEpilogue { Q_BIAS_BF16 = 0, Q_RES_F32 = 1, Q_GELU_F32 = 2, Q_RES_BF16 = 3 };
+
+// The operands of one gemm_s8_kernel launch: C[M, N] = A[M, K] . W[N, K]^T
+struct QGemmArgs {
+    const void* a;              // the codes (QP_CODES) or the rows to quantise
+    const float* row_scale;     // QP_CODES: the codes' row scales [M]
+    const float *ln_w, *ln_b;   // LN forms: [K] f32
+    const float* amax_part;     // QP_F32_PART: [M][K / 64]
+    const void* w;              // int8 [N][K]
+    const float *col_scale, *bias;   // [N] f32
+    const void* res;            // Q_RES_*: [M][N]
+    void* out;                  // [M][N]
+    float* out_part;            // Q_GELU_F32: [M][N / 64]
+    int8_t* q_out;              // the quantising prologues, or NULL: the codes [M][K]
+    float* s_out;               //   ... and their row scales [M]
+    float eps;
+    int M, N, K;
+};
+
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[8][4], uint64_t desc_a,
+                                              uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n"
+        "}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[16][4], uint64_t desc_a,
+                                              uint64_t desc_b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n"
+        "}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+          "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+          "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+          "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+          "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+          "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+          "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+          "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+          "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int BNT>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BNT / 8][4], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+    if constexpr (BNT == 64) wgmma_s8_n64(d, desc_a, desc_b, accumulate);
+    else wgmma_s8_n128(d, desc_a, desc_b, accumulate);
+}
+
+template <int NB>
+__device__ __forceinline__ void acc_fence(int (&acc)[NB][4]) {
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(acc[jb][e])::"memory");
+}
+
+// offset of the 8 codes of group g (columns 8g..8g+7) of row r in a panel of
+// BMT rows: sub-panel g / 16 of [BMT][128 B], swizzled as tile_off (a
+// function of the address: the panel starts on a 1024-byte boundary)
+template <int BMT>
+__device__ __forceinline__ uint32_t code_off(int r, int g) {
+    return (uint32_t)(g >> 4) * (BMT * 128) + tile_off<64>(r, (g >> 1) & 7) + 8 * (g & 1);
+}
+
+// bytes of one element of the rows a prologue quantises (0: codes by TMA),
+// and of the rows its jobs hold whole (0: none)
+__host__ __device__ constexpr int qpro_elem(int pro) {
+    return pro == QP_CODES ? 0 : pro == QP_LN_BF16 || pro == QP_BF16 ? 2 : 4;
+}
+__host__ __device__ constexpr int qpro_row_elem(int pro) {
+    return pro == QP_F32_PART ? 0 : qpro_elem(pro);
+}
+// rows of one prologue job: the largest power of two of whole rows of K
+// elements that fits a W stage of BNT 128-byte rows, at most BMT (0: none).
+// QP_F32_PART's jobs are column chunks of all BMT rows instead (its scales
+// are known first): qpart_job_cols columns a job.
+__host__ __device__ constexpr int qpro_job_rows(int elem, int K, int bnt, int bmt) {
+    int r = bmt;
+    while (r > 0 && (size_t)r * K * elem > (size_t)bnt * 128) r >>= 1;
+    return r;
+}
+__host__ __device__ constexpr int qpart_job_cols(int bnt, int bmt) { return bnt * 128 / (bmt * 4); }
+
+// The prologue's shared-memory reads and writes are plain C++ accesses; the
+// fence before the products hands the panel to the tensor cores' proxy.
+
+// the 8 values of group g (columns 8g..8g+7) of row k in a prologue job:
+// K / 64 boxes of [R rows][64 elements] as the TMA lands them
+template <int ELEM>
+__device__ __forceinline__ void job_group(const unsigned char* job, int R, int k, int g,
+                                          float (&v)[8]) {
+    const unsigned char* a = job + (((g >> 3) * R + k) * 64 + (g & 7) * 8) * ELEM;
+    if constexpr (ELEM == 2) {
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(a), v);
+    } else {
+        const float4 lo = reinterpret_cast<const float4*>(a)[0];
+        const float4 hi = reinterpret_cast<const float4*>(a)[1];
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    }
+}
+
+// group g's codes into the panel, and to the scratch row where kept
+template <int BMT>
+__device__ __forceinline__ void put_codes(const float (&v)[8], float sc, float rc,
+                                          unsigned char* panel, int r, int g, int8_t* keep_row) {
+    const uint2 c = quant8(v, sc, rc);
+    *reinterpret_cast<uint2*>(panel + code_off<BMT>(r, g)) = c;
+    if (keep_row) *reinterpret_cast<uint2*>(keep_row + 8 * g) = c;
+}
+
+// QP_F32_PART: the row scales of the block's BMT rows from the producing
+// epilogue's maxima, before any row arrives: two of the NT = 2 BMT consumer
+// threads a row, each taking every other maximum, all loads in flight at once
+template <int BMT>
+__device__ __forceinline__ void part_scales(const QGemmArgs& p, int m0, float* rs, bool keep) {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = m0 + r, NP = p.K / 64;
+    float m = 0.f;
+    if (row < p.M)
+        for (int c = half; c < NP; c += 2) m = fmaxf(m, p.amax_part[(size_t)row * NP + c]);
+    const float sc = quant_scale(fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1)));
+    if (half == 0) {
+        rs[r] = sc;                                      // rows >= M: never stored
+        rs[BMT + r] = __frcp_rn(sc);                     // the reciprocals, after the scales
+        if (keep && row < p.M) p.s_out[row] = sc;
+    }
+}
+
+// QP_F32_PART's prologue job i at shared address `job`: columns [i C, (i +
+// 1) C) of all BMT rows as one box [BMT][C], every consumer thread
+// quantising its own groups into the swizzled s8 panel, the scales known.
+template <int BMT, int NT>
+__device__ __forceinline__ void quant_cols_job(const QGemmArgs& p, int m0, unsigned char* panel,
+                                               const float* rs, const unsigned char* job, int C,
+                                               int i, bool keep) {
+    const int CG = C / 8, K = p.K;                         // groups of a row in the job
+    for (int it = threadIdx.x; it < BMT * CG; it += NT) {
+        const int r = it / CG, gi = it % CG, row = m0 + r;
+        if (row >= p.M) continue;
+        float v[8];
+        const float4* a = reinterpret_cast<const float4*>(job + (r * C + 8 * gi) * 4);
+        const float4 lo = a[0], hi = a[1];
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        put_codes<BMT>(v, rs[r], rs[BMT + r], panel, r, i * CG + gi,
+                       keep ? p.q_out + (size_t)row * K : nullptr);
+    }
+}
+
+// The LN and bf16 prologues: one row of the block's panel (r; `job` holds
+// it as row k of R) quantised by a quarter warp, 8 lanes, so that a warp
+// takes four rows at once and their reductions share three shuffles.  Lane
+// l of the quarter holds the row's groups g = l + 8 i.  The LayerNorm
+// statistics are ln_row_stats' bit for bit: there lane v of a warp sums its
+// groups v, v + 32, ... in order and the warp adds the 32 sums in a
+// butterfly (xor 16, 8, 4, 2, 1); here lane l keeps the four sums of v = l,
+// l + 8, l + 16, l + 24 (its groups i with i % 4 = 0..3), takes the xor-16
+// and xor-8 steps in registers (their partners are its own) and the xor 4,
+// 2, 1 steps by shuffles within the quarter.  The passes (sums, squares,
+// amax, codes) are rolled loops of four groups that read the row again from
+// shared memory.
+template <int PRO, int BMT>
+__device__ __forceinline__ void quant_row_quarter(const QGemmArgs& p, int m0, unsigned char* panel,
+                                                  float* rs, const unsigned char* job, int R,
+                                                  int k, int r, bool keep) {
+    constexpr int ELEM = qpro_elem(PRO);
+    constexpr bool LN = PRO == QP_LN_BF16 || PRO == QP_LN_F32;
+    const int l = threadIdx.x & 7, K = p.K, NGL = K / 64, row = m0 + r;  // NGL: groups a lane
+    auto quarter_sum = [](const float (&s)[4]) {            // warp_sum's butterfly
+        float u = __fadd_rn(__fadd_rn(s[0], s[2]), __fadd_rn(s[1], s[3]));
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) u += __shfl_xor_sync(0xffffffffu, u, o);
+        return u;
+    };
+    // the row's value at group i of this lane, LayerNorm applied where asked
+    float mean = 0.f, rstd = 1.f;
+    auto value = [&](int i, float (&v)[8]) {
+        job_group<ELEM>(job, R, k, l + 8 * i, v);
+        if constexpr (LN) {
+            float w[8], b[8];
+            load_group(p.ln_w, l + 8 * i, w);
+            load_group(p.ln_b, l + 8 * i, b);
+            ln_group_f32(v, mean, rstd, w, b);
+        }
+    };
+    if constexpr (LN) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+        for (int i0 = 0; i0 < NGL; i0 += 4)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (i0 + u < NGL) {
+                    float v[8];
+                    job_group<ELEM>(job, R, k, l + 8 * (i0 + u), v);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) s[u] = __fadd_rn(s[u], v[e]);
+                }
+        const float mu = __fdiv_rn(quarter_sum(s), (float)K);
+        float q[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+        for (int i0 = 0; i0 < NGL; i0 += 4)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (i0 + u < NGL) {
+                    float v[8];
+                    job_group<ELEM>(job, R, k, l + 8 * (i0 + u), v);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) {
+                        const float d = __fsub_rn(v[e], mu);
+                        q[u] = __fmaf_rn(d, d, q[u]);
+                    }
+                }
+        mean = mu;
+        rstd = rsqrtf(__fadd_rn(__fdiv_rn(quarter_sum(q), (float)K), p.eps));
+    }
+    float amax = 0.f;
+#pragma unroll 1
+    for (int i0 = 0; i0 < NGL; i0 += 4)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (i0 + u < NGL) {
+                float v[8];
+                value(i0 + u, v);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+            }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float sc = quant_scale(amax), rc = __frcp_rn(sc);
+    if (row >= p.M) return;                                 // rows >= M are never stored
+    int8_t* keep_row = keep ? p.q_out + (size_t)row * K : nullptr;
+#pragma unroll 1
+    for (int i0 = 0; i0 < NGL; i0 += 4)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (i0 + u < NGL) {
+                float v[8];
+                value(i0 + u, v);
+                put_codes<BMT>(v, sc, rc, panel, r, l + 8 * (i0 + u), keep_row);
+            }
+    if (l == 0) {
+        rs[r] = sc;
+        if (keep) p.s_out[row] = sc;
+    }
+}
+
+// the pair of `res` at element o as f32 (f32 for Q_RES_BF16, else bf16)
+template <int EPI>
+__device__ __forceinline__ float2 q_load_res(const void* __restrict__ res, size_t o) {
+    if (EPI == Q_RES_BF16)
+        return __ldg(reinterpret_cast<const float2*>(reinterpret_cast<const float*>(res) + o));
+    return bf16x2_to_float2(
+        __ldg(reinterpret_cast<const unsigned int*>(reinterpret_cast<const bf16*>(res) + o)));
+}
+
+// K8's epilogue of two neighbouring columns of one row: v the dequantised
+// products, b the bias, x the residual pair; o = row * N + col.  Returns the
+// stored f32 values in v (Q_GELU_F32's row maxima read them).
+template <int EPI>
+__device__ __forceinline__ void q_epilogue_pair(float& v0, float& v1, float2 b, float2 x, size_t o,
+                                                void* __restrict__ out) {
+    if (EPI == Q_BIAS_BF16) {
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) =
+            pack_bf16(__fadd_rn(v0, b.x), __fadd_rn(v1, b.y));
+    } else if (EPI == Q_RES_F32) {
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) =
+            make_float2(__fadd_rn(__fadd_rn(x.x, v0), b.x), __fadd_rn(__fadd_rn(x.y, v1), b.y));
+    } else if (EPI == Q_GELU_F32) {
+        v0 = gelu_tanh_rn(__fadd_rn(v0, b.x));
+        v1 = gelu_tanh_rn(__fadd_rn(v1, b.y));
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(v0, v1);
+    } else {
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) =
+            pack_bf16(__fadd_rn(__fadd_rn(x.x, v0), b.x), __fadd_rn(__fadd_rn(x.y, v1), b.y));
+    }
+}
+
+// bytes of gemm_s8_kernel's shared memory: the A panel of ceil(K / 128)
+// sub-panels, `stages` W stages, the row scales and their reciprocals, the
+// mbarriers
+__host__ __device__ constexpr size_t qgemm_panel_bytes(int wg, int K) {
+    return (size_t)((K + QK - 1) / QK) * 64 * wg * 128;
+}
+__host__ __device__ constexpr size_t qgemm_smem(int wg, int bn, int K, int stages) {
+    return TILE_ALIGN + qgemm_panel_bytes(wg, K) + (size_t)stages * bn * 128 + 64 * wg * 8
+           + (2 * QG_MAX_STAGES + 1) * 8;
+}
+
+// One block computes `tiles` column tiles of BMT x BNT, one after another,
+// for one row panel of BMT = 64 WG rows: WG consumer warpgroups of 64 rows
+// each (sharing every W tile) and one producer warp, as gemm_kernel's NT
+// form with its panel kept.  grid = (ceil(N / BNT / tiles), ceil(M / BMT)).
+// Integer wgmma has no transpose bits: both operands are K-major, the codes
+// [M][K] and the weights in torch's (out, in) layout [N][K].  A 128-byte
+// swizzled row holds 128 codes, so a ring stage is 128 deep (four k32
+// products, the descriptor moving 32 bytes each, as a bf16 k16 step does).
+// Shared memory (1024-byte aligned): the A panel [ceil(K / 128)][BMT][128 B],
+// then 2^lg_stages W stages [BNT][128 B], the row scales [BMT] f32 and
+// (QP_F32_PART) their reciprocals [BMT], the mbarriers full[8], empty[8],
+// panel.  The prologue fills the panel once: by TMA for QP_CODES; else the
+// producer streams the block's raw rows through the ring ahead of the W
+// tiles, as jobs of R whole rows (qpro_job_rows: K / 64 TMA boxes of [R][64]
+// a job, rows >= M as zeros; QP_F32_PART: column chunks of all BMT rows, one
+// box a job, its scales from the maxima first, part_scales), and the
+// consumers quantise each job into the panel as it lands (a quarter warp a
+// row, quant_row_quarter; quant_cols_job) and release its stage, so the
+// rows arrive at the memory's rate and the W ring starts as the last job is
+// taken.  Products and ring as gemm_kernel's; the epilogue
+// dequantises the accumulators in registers, f32(acc) * row scale * column
+// scale, and applies K8's epilogue, the bias and column scales loaded while
+// the tile's last products run.
+template <int EPI, int PRO, int WG, int BNT>
+__global__ void __launch_bounds__(128 * WG + 32)
+gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+               const QGemmArgs p, int tiles, int lg_stages) {
+    constexpr int NC = 128 * WG, BMT = 64 * WG;
+    constexpr uint32_t WB = BNT * 128, AB = BMT * 128;     // bytes of one W tile / A sub-panel
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    unsigned char* const base = align_tiles(smem_raw);
+    const uint32_t s0 = smem_u32(base);
+    const int M = p.M, N = p.N, K = p.K, stages = 1 << lg_stages;
+    const int nk = (K + QK - 1) / QK;
+    const uint32_t sW = s0 + nk * AB;
+    float* const rs = reinterpret_cast<float*>(base + nk * AB + stages * WB);
+    const uint32_t full = smem_u32(rs + 2 * BMT), empty = full + 8 * QG_MAX_STAGES,
+                   panel_bar = empty + 8 * QG_MAX_STAGES;
+    const int tid = threadIdx.x, warp_id = tid >> 5, lane = tid & 31;
+    const int m0 = blockIdx.y * BMT, ct0 = blockIdx.x * tiles;
+    const int n_tiles = min(tiles, N / BNT - ct0);
+    constexpr int ELEM = qpro_elem(PRO);
+    // a prologue job: R rows (QP_F32_PART: R columns); the jobs, then the W jobs
+    const int R = PRO == QP_F32_PART ? qpart_job_cols(BNT, BMT) : qpro_job_rows(ELEM, K, BNT, BMT);
+    const int n_pro = PRO == QP_CODES ? 0 : PRO == QP_F32_PART ? K / R : BMT / R;
+    const int n_jobs = n_pro + n_tiles * nk;
+
+    if (tid == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 4 * WG);       // one arrival per consumer warp
+        }
+        mbar_init(panel_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp_id == 4 * WG) {
+        // the producer
+        if (lane == 0) {
+            if (PRO == QP_CODES) {
+                mbar_expect_tx(panel_bar, nk * AB);
+                for (int kt = 0; kt < nk; ++kt) tma_load_2d(s0 + kt * AB, &map_a, kt * QK, m0, panel_bar);
+            }
+            for (int j = 0, tile = 0, kt = 0; j < n_jobs; ++j) {
+                const int st = j & (stages - 1);
+                const uint32_t bar = full + 8 * st;
+                if (j >= stages) mbar_wait(empty + 8 * st, ((j >> lg_stages) - 1) & 1);
+                if (j < n_pro && PRO == QP_F32_PART) {
+                    mbar_expect_tx(bar, WB);
+                    tma_load_2d(sW + st * WB, &map_a, j * R, m0, bar);
+                    continue;
+                }
+                if (j < n_pro) {
+                    mbar_expect_tx(bar, R * K * ELEM);
+                    for (int b = 0; b < K / 64; ++b)
+                        tma_load_2d(sW + st * WB + b * R * 64 * ELEM, &map_a, 64 * b, m0 + j * R, bar);
+                    continue;
+                }
+                mbar_expect_tx(bar, WB);
+                tma_load_2d(sW + st * WB, &map_w, kt * QK, (ct0 + tile) * BNT, bar);
+                if (++kt == nk) {
+                    kt = 0;
+                    ++tile;
+                }
+            }
+        }
+        return;
+    }
+
+    const int wg = tid >> 7, warp = warp_id & 3, g = lane >> 2, t = lane & 3;
+    const int r_loc = wg * 64 + warp * 16 + g, row0 = m0 + r_loc;
+    float rsc[2];
+    if constexpr (PRO == QP_CODES) {
+        mbar_wait(panel_bar, 0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) rsc[h] = row0 + 8 * h < M ? p.row_scale[row0 + 8 * h] : 0.f;
+    } else {
+        const bool keep = p.q_out != nullptr && blockIdx.x == 0;
+        if constexpr (PRO == QP_F32_PART) {
+            part_scales<BMT>(p, m0, rs, keep);
+            asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");   // rs, before any job
+            for (int j = 0; j < n_pro; ++j) {
+                const int st = j & (stages - 1);
+                mbar_wait(full + 8 * st, (j >> lg_stages) & 1);
+                quant_cols_job<BMT, NC>(p, m0, base, rs, base + (sW - s0) + st * WB, R, j, keep);
+                __syncwarp();
+                mbar_arrive_if(empty + 8 * st, lane == 0);
+            }
+        } else {
+            // the row jobs J at a time, so that every quarter warp has a row
+            // (J <= stages: the plan's rule), 4 NC / 32 rows a pass
+            const int J = max(1, (NC / 8) / R);
+            for (int j0 = 0; j0 < n_pro; j0 += J) {
+                for (int j = j0; j < j0 + J; ++j)
+                    mbar_wait(full + 8 * (j & (stages - 1)), (j >> lg_stages) & 1);
+                for (int t = warp_id * 4 + (lane >> 3); t < J * R; t += NC / 8) {
+                    const int j = j0 + t / R;
+                    quant_row_quarter<PRO, BMT>(p, m0, base, rs,
+                                                base + (sW - s0) + (j & (stages - 1)) * WB, R,
+                                                t % R, j * R + t % R, keep);
+                }
+                __syncwarp();
+                for (int j = j0; j < j0 + J; ++j)
+                    mbar_arrive_if(empty + 8 * (j & (stages - 1)), lane == 0);
+            }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");     // the consumers only
+#pragma unroll
+        for (int h = 0; h < 2; ++h) rsc[h] = rs[r_loc + 8 * h];
+    }
+
+    // As gemm_kernel: only wgmma writes the accumulators, the first k step of
+    // a tile is peeled, arrivals are predicated inside the instruction.
+    int acc[BNT / 8][4];
+    const uint32_t a_wg = s0 + wg * 64 * 128;
+    auto mma = [&](int j, int kt, bool first) {
+        const int st = j & (stages - 1);
+        mbar_wait(full + 8 * st, (j >> lg_stages) & 1);
+        const uint64_t da = tile_desc<64>(a_wg + kt * AB);
+        const uint64_t db = tile_desc<64>(sW + st * WB);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < QK / 32; ++ks)
+            wgmma_s8<BNT>(acc, da + ks * 2, db + ks * 2, !first || ks > 0);
+        wgmma_commit();
+    };
+    constexpr bool RES = EPI == Q_RES_F32 || EPI == Q_RES_BF16;
+    for (int tile = 0, j = n_pro; tile < n_tiles; ++tile) {
+        mma(j++, 0, true);
+        for (int kt = 1; kt < nk; ++kt, ++j) {
+            mma(j, kt, false);
+            wgmma_wait_pending<1>();
+            mbar_arrive_if(empty + 8 * ((j - 1) & (stages - 1)), lane == 0);
+        }
+        // the tile's bias and column scales, loaded while its last products run
+        const int n0 = (ct0 + tile) * BNT;
+        float2 bv[BNT / 8], cs[BNT / 8];
+#pragma unroll
+        for (int i = 0; i < BNT / 8; ++i) {
+            bv[i] = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * i + 2 * t));
+            cs[i] = __ldg(reinterpret_cast<const float2*>(p.col_scale + n0 + 8 * i + 2 * t));
+        }
+        wgmma_wait_pending<0>();
+        mbar_arrive_if(empty + 8 * ((j - 1) & (stages - 1)), lane == 0);
+        acc_fence(acc);
+        // warp w of warpgroup wg holds rows 64 wg + 16 w + g and + 8, columns
+        // 8 i + 2 t and + 1; residuals loaded EC column blocks at a time
+        constexpr int EC = 4;
+        float pm[2][BNT / 64];                       // Q_GELU_F32: |value| maxima
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < BNT / 64; ++q) pm[h][q] = 0.f;
+#pragma unroll
+        for (int i0 = 0; i0 < BNT / 8; i0 += EC) {
+            float2 xv[EC][2];
+#pragma unroll
+            for (int i = 0; i < EC; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int row = row0 + 8 * h;
+                    xv[i][h] = RES && row < M
+                        ? q_load_res<EPI>(p.res, (size_t)row * N + n0 + 8 * (i0 + i) + 2 * t)
+                        : make_float2(0.f, 0.f);
+                }
+#pragma unroll
+            for (int i = 0; i < EC; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int row = row0 + 8 * h, col = n0 + 8 * (i0 + i) + 2 * t;
+                    // |acc| can pass 2^24: the conversion rounds to nearest
+                    float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i0 + i][2 * h]), rsc[h]),
+                                         cs[i0 + i].x);
+                    float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i0 + i][2 * h + 1]), rsc[h]),
+                                         cs[i0 + i].y);
+                    if (row < M) q_epilogue_pair<EPI>(v0, v1, bv[i0 + i], xv[i][h], (size_t)row * N + col, p.out);
+                    if (EPI == Q_GELU_F32)
+                        pm[h][(i0 + i) / 8] = fmaxf(pm[h][(i0 + i) / 8], fmaxf(fabsf(v0), fabsf(v1)));
+                }
+        }
+        if constexpr (EPI == Q_GELU_F32) {
+            // the row maxima per 64 columns: the quad's four threads hold a
+            // row's 64 columns of a group (max is order-free: exact)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int q = 0; q < BNT / 64; ++q) {
+                    float m = pm[h][q];
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                    const int row = row0 + 8 * h;
+                    if (t == 0 && row < M) p.out_part[(size_t)row * (N / 64) + n0 / 64 + q] = m;
+                }
+        }
+        acc_fence(acc);
+    }
+}
+
+// Configurations of gemm_s8_kernel: warpgroups (64 rows each) and columns;
+// the A panel is always kept (its codes exist only in shared memory)
+struct QGemmConfig { int wg, bn; };
+constexpr int QGEMM_CONFIGS = 3;
+constexpr QGemmConfig QGEMM_CONFIG[QGEMM_CONFIGS] = {{2, 128}, {1, 128}, {1, 64}};
+
+// log2 of the W stages that fit beside the panel (at most 8, at least 2), or -1
+inline int qgemm_lg_stages(const QGemmConfig& c, int K) {
+    for (int lg = 3; lg >= 1; --lg)
+        if (qgemm_smem(c.wg, c.bn, K, 1 << lg) <= GEMM_SMEM_MAX) return lg;
+    return -1;
+}
+
+// config: an index of QGEMM_CONFIG (-1: none fits); tiles: column tiles per
+// block; lg_stages: log2 of the W ring's stages
+struct QGemmPlan { int config, tiles, lg_stages; };
+
+// The plan of an s8 product whose prologue holds whole A rows of `row_elem`
+// bytes an element in a W stage (its row jobs; 0: none), gemm_plan's rule for
+// the kept-panel forms (ops/fused_block_int8.py s8_plan mirrors it).  A
+// configuration fits where N takes its column tiles, two W stages fit beside
+// its panel, a W stage holds a whole A row and the ring holds the jobs that
+// give every quarter warp a row (4 rows a consumer warp).  128 x 128 where
+// there are
+// sms / 4 panels of 128 rows, the tile fits and its column tiles split evenly
+// over the column groups one wave holds beside the panels (or the panels
+// alone fill a wave); else 64 x 128 where there are sms / 4 panels of 64
+// rows and it fits, else 64 x 64 (64 x 128 where a 64-column stage holds no
+// A row).  The columns are cut into as many groups as one wave holds beside
+// the row panels (at least one).
+inline QGemmPlan qgemm_plan(int M, int N, int K, int row_elem) {
+    const int sms = sm_count(), p128 = (M + 127) / 128, p64 = (M + 63) / 64;
+    auto fits = [&](int i) {
+        const QGemmConfig& c = QGEMM_CONFIG[i];
+        const int rows = row_elem ? qpro_job_rows(row_elem, K, c.bn, 64 * c.wg) : 0;
+        return N % c.bn == 0 && qgemm_lg_stages(c, K) > 0
+               && (row_elem == 0
+                   || (rows > 0 && (rows << qgemm_lg_stages(c, K)) >= 16 * c.wg));
+    };
+    auto groups = [&](int n_ct, int panels) { return std::min(n_ct, std::max(1, sms / panels)); };
+    if (p128 >= sms / 4 && fits(0)) {
+        const int n_ct = N / 128, gr = groups(n_ct, p128);
+        if (p128 >= sms || n_ct % gr == 0)
+            return {0, (n_ct + gr - 1) / gr, qgemm_lg_stages(QGEMM_CONFIG[0], K)};
+    }
+    int c = 1;
+    if (p64 < sms / 4 || !fits(c)) c = 2;
+    if (!fits(c)) c = 1;                       // a W stage too small for an A row
+    if (!fits(c)) return {-1, 1, 0};
+    const int n_ct = N / QGEMM_CONFIG[c].bn, gr = groups(n_ct, p64);
+    return {c, (n_ct + gr - 1) / gr, qgemm_lg_stages(QGEMM_CONFIG[c], K)};
+}
+
+template <int EPI, int PRO, int WG, int BNT>
+cudaError_t launch_qgemm_config(const QGemmArgs& a, QGemmPlan pl, cudaStream_t stream) {
+    CUtensorMap map_a{}, map_w{};
+    cudaError_t err = make_tensor_map(&map_w, a.w, a.N, a.K, BNT, true);
+    if (err == cudaSuccess)
+        err = PRO == QP_CODES
+            ? make_tensor_map(&map_a, a.a, a.M, a.K, 64 * WG, true)
+            : PRO == QP_F32_PART
+            ? make_rows_map(&map_a, a.a, a.M, a.K, 64 * WG, 4, qpart_job_cols(BNT, 64 * WG))
+            : make_rows_map(&map_a, a.a, a.M, a.K,
+                            qpro_job_rows(qpro_elem(PRO), a.K, BNT, 64 * WG), qpro_elem(PRO), 64);
+    if (err != cudaSuccess) return err;
+    const size_t smem = qgemm_smem(WG, BNT, a.K, 1 << pl.lg_stages);
+    auto kernel = gemm_s8_kernel<EPI, PRO, WG, BNT>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int groups = (a.N / BNT + pl.tiles - 1) / pl.tiles;
+    kernel<<<dim3(groups, (a.M + 64 * WG - 1) / (64 * WG)), 128 * WG + 32, smem, stream>>>(
+        map_a, map_w, a, pl.tiles, pl.lg_stages);
+    return cudaGetLastError();
+}
+
+// C[M, N] = epilogue(dequantised A . W^T) on the caller's stream, A's codes
+// from the prologue PRO, in the configuration the plan picks for the shape
+template <int EPI, int PRO>
+cudaError_t launch_qgemm(const QGemmArgs& a, cudaStream_t stream) {
+    const QGemmPlan pl = qgemm_plan(a.M, a.N, a.K, qpro_row_elem(PRO));
+    switch (pl.config) {
+        case 0: return launch_qgemm_config<EPI, PRO, 2, 128>(a, pl, stream);
+        case 1: return launch_qgemm_config<EPI, PRO, 1, 128>(a, pl, stream);
+        case 2: return launch_qgemm_config<EPI, PRO, 1, 64>(a, pl, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
 
 // ---------------------------------------------------------------------------
 // LayerNorm rows of the backward chains (K3 and K4)

@@ -18,16 +18,21 @@ projections (QKV, attention output, fc1, fc2) as s8 x s8 -> s32 products.
   parameters and biases are f32; qkv, the attention (identical to the bf16
   block's) and the block output are bf16; ``x1 = x + proj`` stays f32.
 
-The kernel is ``sod_tpu_torch/csrc/fused_block_int8.cu``; its header says
-how it is laid out on the card.  ``fused_vit_block_int8`` launches it for a
-CUDA tensor and raises if the build or the launch fails; it runs the plain
-version ``fused_vit_block_int8_reference`` only for a tensor on the CPU.
+The kernel is ``sod_tpu_torch/csrc/fused_block_int8.cu``, five launches a
+block: four s8 products (``gemm_s8_kernel`` in ``csrc/vit_block.cuh``, each
+with its row quantiser in its prologue) around the attention; its header
+says how it is laid out on the card.  ``fused_vit_block_int8`` launches it
+for a CUDA tensor and raises if the build or the launch fails; it runs the
+plain version ``fused_vit_block_int8_reference`` only for a tensor on the
+CPU.  ``qgemm`` runs each of the four products alone (``qgemm_reference``
+its plain version), ``s8_plan`` mirrors the tile plan the kernel picks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -39,12 +44,14 @@ from sod_tpu_torch.ops.layers import layer_norm
 
 MAX_TOKENS = 1024              # sod_tpu's whole-block routing contract
 MAX_DIM = 768                  # ViT-B width (sod_tpu/models/vit.py:323)
+MAX_ROW = 1024                 # K of the LN and bf16 products (csrc LN_MAX_DIM)
 MATS = ("qkv", "proj", "fc1", "fc2")
 # where each record entry lives in a models.vit.Block's state dict
 _LINEARS = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
             "fc2": "mlp.fc2"}
 
 launches = 0                   # kernel-chain launches, one per block call
+form_launches = 0              # qgemm launches (the products alone)
 _launch_lock = threading.Lock()
 
 Record = Dict[str, Dict[str, torch.Tensor]]
@@ -107,6 +114,7 @@ def quantize_vit_blocks(source, prefix: Optional[str] = None,
             q, s = quantize_weight(get(i, f"{where}.weight"))
             rec[name] = {"q": q.contiguous(), "s": s,
                          "b": get(i, f"{where}.bias").clone()}
+        check_record(rec)
         records.append(rec)
     return records
 
@@ -138,7 +146,11 @@ def _record_tensors(bq: Record) -> List[torch.Tensor]:
 def quant_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row symmetric int8 of f32 rows [..., K]:
     (q int8 [..., K], s f32 [..., 1]) with h ~ q * s."""
-    amax = h.abs().amax(dim=-1, keepdim=True)
+    return _quant_with_amax(h, h.abs().amax(dim=-1, keepdim=True))
+
+
+def _quant_with_amax(h: torch.Tensor, amax: torch.Tensor):
+    """``quant_rows`` with each row's amax given [..., 1]."""
     s = amax.clamp_min(1e-8) / _f127(h)
     q = torch.round(h / s).clamp(-127, 127).to(torch.int8)
     return q, s
@@ -154,18 +166,67 @@ def _int_matmul(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q.double(), wq.double().t()).to(torch.float32)
 
 
-def _qdot(h: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor):
-    """``qdot`` and the row codes and scales it made: (f32 [..., N], q, s)."""
-    q, s = quant_rows(h)
-    acc = _int_matmul(q.reshape(-1, q.shape[-1]), wq)
-    return acc.reshape(*h.shape[:-1], wq.shape[0]) * s * ws, q, s
-
-
 def qdot(h: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """f32 rows [..., K] x int8 weights [N, K] -> f32 [..., N]: rows
     quantised by ``quant_rows``, the product in exact integers, then
     ``f32(acc) * row_scale * col_scale``."""
-    return _qdot(h, wq, ws)[0]
+    q, s = quant_rows(h)
+    acc = _int_matmul(q.reshape(-1, q.shape[-1]), wq)
+    return acc.reshape(*h.shape[:-1], wq.shape[0]) * s * ws
+
+
+# ---------------------------------------------------------------------------
+# The chain's four products, each with its quantiser: plain PyTorch
+# ---------------------------------------------------------------------------
+
+# form: (a's dtype, with LayerNorm, res's dtype, out's dtype); the C entry
+# sod_qgemm numbers them in this order
+S8_FORMS = {"qkv": (torch.bfloat16, True, None, torch.bfloat16),
+            "proj": (torch.bfloat16, False, torch.bfloat16, torch.float32),
+            "fc1": (torch.float32, True, None, torch.float32),
+            "fc2": (torch.float32, False, torch.float32, torch.bfloat16)}
+PART_COLS = 64                 # fc1's row maxima of |hidden|: one per 64 columns
+# bytes an element of the rows each form's prologue holds whole in a ring
+# stage (csrc qpro_row_elem; fc2 streams column chunks: none)
+S8_ROW_ELEM = {"qkv": 2, "proj": 2, "fc1": 4, "fc2": 0}
+
+
+def qgemm_reference(form: str, a: torch.Tensor, wq: torch.Tensor,
+                    ws: torch.Tensor, bias: torch.Tensor,
+                    ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    res: Optional[torch.Tensor] = None,
+                    part: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                    scratch: Optional[dict] = None):
+    """Plain version of one of the chain's products on rows a [M, K], with
+    K8's rounding points; returns (out [M, N], fc1's row maxima or None):
+
+        qkv   bf16(qdot(LN(a)) + b)          LN with f32 parameters, in f32
+        proj  f32((res + qdot(a)) + b)       a bf16, res bf16
+        fc1   f32(tanh-GELU(qdot(LN(a)) + b)), and max |out| per 64 columns
+              of each row [M, N / 64]
+        fc2   bf16((res + qdot(a)) + b)      a f32, res f32; each row's amax
+              is the max of ``part`` [M, K / 64] (fc1's maxima)
+
+    :param scratch: a dict that receives the row codes ``q`` [M, K] and
+        scales ``s`` [M] the product used."""
+    h = a.float()
+    if ln is not None:
+        h = layer_norm(h, ln[0], ln[1], eps)
+    if form == "fc2":
+        q, s = _quant_with_amax(h, part.amax(dim=-1, keepdim=True))
+    else:
+        q, s = quant_rows(h)
+    v = _int_matmul(q, wq) * s * ws
+    if scratch is not None:
+        scratch.update(q=q, s=s.reshape(-1))
+    if form == "qkv":
+        return (v + bias).to(torch.bfloat16), None
+    if form == "proj":
+        return res.float() + v + bias, None
+    if form == "fc1":
+        hid = _gelu_tanh(v + bias)
+        return hid, hid.abs().reshape(hid.shape[0], -1, PART_COLS).amax(dim=-1)
+    return (res + v + bias).to(torch.bfloat16), None
 
 
 def fused_vit_block_int8_reference(x: torch.Tensor, bq: Record, n_heads: int,
@@ -175,61 +236,179 @@ def fused_vit_block_int8_reference(x: torch.Tensor, bq: Record, n_heads: int,
                                    scratch: Optional[dict] = None
                                    ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (``sod_tpu``'s ``xla_int8_block``),
-    with K8's rounding points.
+    with K8's rounding points: the four products of ``qgemm_reference``
+    around the attention.
 
     :param scratch: a dict that receives the intermediates the kernel chain
         keeps too: the int8 codes ``q_qkv, q_proj, q_fc1, q_fc2`` with their
         row scales ``s_*`` [M], and ``qkv``, ``attn``, ``x1``, ``hid``."""
     b, n, d = x.shape
-    x0 = x.float()
     keep = {} if scratch is None else scratch
 
-    def dot(name, h):
-        out, q, s = _qdot(h, bq[name]["q"], bq[name]["s"])
-        keep[f"q_{name}"], keep[f"s_{name}"] = q.reshape(b * n, -1), s.reshape(-1)
-        return out
+    def product(name, a, **kw):
+        sk = {}
+        out, part = qgemm_reference(name, a, bq[name]["q"], bq[name]["s"], bq[name]["b"],
+                                    eps=eps, scratch=sk, **kw)
+        keep[f"q_{name}"], keep[f"s_{name}"] = sk["q"], sk["s"]
+        return out, part
 
-    h = layer_norm(x0, bq["norm1"]["weight"], bq["norm1"]["bias"], eps)
-    qkv = (dot("qkv", h) + bq["qkv"]["b"]).to(torch.bfloat16)
-    attn = attention_plain(qkv.float(), n_heads, n_real, key_mask)
-    x1 = x0 + dot("proj", attn) + bq["proj"]["b"]
-    h2 = layer_norm(x1, bq["norm2"]["weight"], bq["norm2"]["bias"], eps)
-    hid = _gelu_tanh(dot("fc1", h2) + bq["fc1"]["b"])
-    out = (x1 + dot("fc2", hid) + bq["fc2"]["b"]).to(x.dtype)
-    keep.update(qkv=qkv, attn=attn.to(torch.bfloat16), x1=x1, hid=hid)
-    return out
+    rows = x.reshape(b * n, d)
+    qkv, _ = product("qkv", rows, ln=(bq["norm1"]["weight"], bq["norm1"]["bias"]))
+    attn = attention_plain(qkv.reshape(b, n, 3 * d).float(), n_heads, n_real,
+                           key_mask).to(torch.bfloat16).reshape(b * n, d)
+    x1, _ = product("proj", attn, res=rows)
+    hid, part = product("fc1", x1, ln=(bq["norm2"]["weight"], bq["norm2"]["bias"]))
+    out, _ = product("fc2", hid, res=x1, part=part)
+    keep.update(qkv=qkv.reshape(b, n, 3 * d), attn=attn.reshape(b, n, d),
+                x1=x1.reshape(b, n, d), hid=hid.reshape(b, n, -1))
+    return out.reshape(b, n, d).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # The kernel chain
 # ---------------------------------------------------------------------------
 
+# gemm_s8_kernel's configurations (csrc/vit_block.cuh QGEMM_CONFIG):
+# (consumer warpgroups of 64 rows, columns of a tile)
+S8_CONFIGS = ((2, 128), (1, 128), (1, 64))
+SMEM_MAX = 232448              # dynamic shared memory of one block on an H100
+SMS = 132                      # SMs of an H100 SXM
+
+
+def s8_smem(wg: int, bn: int, k: int, stages: int) -> int:
+    """Bytes of shared memory of one gemm_s8_kernel block (qgemm_smem): the
+    alignment slack, the kept A panel of codes, the W ring, the row scales
+    and their reciprocals, the mbarriers."""
+    return 1024 + -(-k // 128) * 64 * wg * 128 + stages * bn * 128 + 64 * wg * 8 + 17 * 8
+
+
+def s8_lg_stages(wg: int, bn: int, k: int) -> int:
+    """log2 of the W stages that fit beside the panel (8, 4 or 2), else -1."""
+    return next((lg for lg in (3, 2, 1) if s8_smem(wg, bn, k, 1 << lg) <= SMEM_MAX), -1)
+
+
+def s8_job_rows(elem: int, k: int, bn: int, bmt: int) -> int:
+    """Rows of one prologue job (``qpro_job_rows``): the largest power of
+    two of whole rows of k elements of ``elem`` bytes that fits a W stage of
+    bn 128-byte rows, at most bmt; 0 if no row fits."""
+    r = bmt
+    while r and r * k * elem > bn * 128:
+        r //= 2
+    return r
+
+
+def s8_plan(m: int, n: int, k: int, row_elem: int, sms: int = SMS) -> Tuple[int, int, int]:
+    """The plan of an s8 product C[m, n] over k whose prologue holds whole A
+    rows of ``row_elem`` bytes an element in a ring stage (``S8_ROW_ELEM``;
+    0: none), a mirror of the kernel's ``qgemm_plan``: (an index of
+    ``S8_CONFIGS`` or -1 if none fits, column tiles per block, log2 of the
+    ring's stages)."""
+    p128, p64 = -(-m // 128), -(-m // 64)
+
+    def fits(i):
+        wg, bn = S8_CONFIGS[i]
+        rows = s8_job_rows(row_elem, k, bn, 64 * wg) if row_elem else 0
+        return (n % bn == 0 and s8_lg_stages(wg, bn, k) > 0
+                and (row_elem == 0 or rows << s8_lg_stages(wg, bn, k) >= 16 * wg))
+
+    def tiles(n_ct, panels):
+        g = min(n_ct, max(1, sms // panels))
+        return g, -(-n_ct // g)
+
+    if p128 >= sms // 4 and fits(0):
+        g, t = tiles(n // 128, p128)
+        if p128 >= sms or (n // 128) % g == 0:
+            return 0, t, s8_lg_stages(*S8_CONFIGS[0], k)
+    c = 1 if p64 >= sms // 4 and fits(1) else 2
+    if not fits(c):
+        c = 1                                  # a W stage too small for an A row
+    if not fits(c):
+        return -1, 1, 0
+    return c, tiles(n // S8_CONFIGS[c][1], p64)[1], s8_lg_stages(*S8_CONFIGS[c], k)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """The C entries of ``csrc/fused_block_int8.cu``, built at first use:
-    (the block chain, the row quantiser alone, the QKV product alone)."""
+def _lib():
+    """``csrc/fused_block_int8.cu``'s library with its entries typed, built
+    at first use."""
     from sod_tpu_torch.ops._build import load
 
     lib = load("fused_block_int8")
-    block = lib.sod_fused_vit_block_int8
-    block.restype = ctypes.c_int
-    block.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 6
-                      + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    rows = lib.sod_quant_rows_f32
-    rows.restype = ctypes.c_int
-    rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    gemm = lib.sod_qgemm_bias_bf16
-    gemm.restype = ctypes.c_int
-    gemm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return block, rows, gemm
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, args in (("sod_fused_vit_block_int8", [ptr] * 29 + [i32] * 6 + [f32] * 2 + [ptr]),
+                       ("sod_qgemm", [i32] + [ptr] * 11 + [i32] * 3 + [f32, ptr]),
+                       ("sod_quant_rows_f32", [ptr] * 3 + [i32] * 2 + [ptr]),
+                       ("sod_qgemm_bias_bf16", [ptr] * 6 + [i32] * 3 + [ptr])):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = args
+    lib.sod_qgemm_plan.restype = None
+    lib.sod_qgemm_plan.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def kernel_plan(m: int, n: int, k: int, row_elem: int) -> Tuple[int, int, int]:
+    """The kernel's own plan for C[m, n] over k (``s8_plan`` on the card's
+    SMs); needs the built library and the card."""
+    out = (ctypes.c_int * 3)()
+    _lib().sod_qgemm_plan(m, n, k, row_elem, out)
+    return out[0], out[1], out[2]
+
+
+# id of a record's qkv codes -> (weak references to its 16 tensors, device,
+# d, hidden): records checked once, by ``quantize_vit_blocks`` or at their
+# first block call; an entry leaves with its tensor
+_checked: Dict[int, tuple] = {}
+
+
+def check_record(bq: Record):
+    """Raise ``ValueError`` for a record the kernel chain does not take: int8
+    (out, in) codes of consistent widths with f32 scales and biases, f32
+    LayerNorm parameters, every tensor on one device and, on the card,
+    contiguous and 16-byte aligned.  Returns (device, d, hidden)."""
+    ts = _record_tensors(bq)
+    d, hidden = bq["qkv"]["q"].shape[1], bq["fc1"]["q"].shape[0]
+    shapes = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d), "fc2": (d, hidden)}
+    for name, shape in shapes.items():
+        m = bq[name]
+        if (tuple(m["q"].shape) != shape or m["q"].dtype != torch.int8
+                or m["s"].dtype != torch.float32 or m["b"].dtype != torch.float32
+                or tuple(m["s"].shape) != shape[:1] or tuple(m["b"].shape) != shape[:1]):
+            raise ValueError(f"record entry {name!r} does not fit d={d}: int8 "
+                             f"{shape} codes with f32 [{shape[0]}] scales and bias")
+    for name in ("norm1", "norm2"):
+        if any(tuple(bq[name][k].shape) != (d,) or bq[name][k].dtype != torch.float32
+               for k in ("weight", "bias")):
+            raise ValueError(f"record entry {name!r} must hold f32 [{d}] weight and bias")
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("a record's tensors must lie on one device")
+    if dev.type == "cuda" and any(not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
+        raise ValueError("a record's tensors on the card must be contiguous and "
+                         "16-byte aligned")
+    _checked[id(ts[2])] = ([weakref.ref(t) for t in ts], dev, d, hidden)
+    weakref.finalize(ts[2], _checked.pop, id(ts[2]), None)
+    return dev, d, hidden
+
+
+def _record_info(bq: Record):
+    """``check_record``'s (device, d, hidden) and the record's tensors: the
+    check runs once per record, later calls confirm it holds the same
+    tensors."""
+    ts = _record_tensors(bq)
+    hit = _checked.get(id(ts[2]))
+    if hit is None or any(r() is not t for r, t in zip(hit[0], ts)):
+        check_record(bq)
+        hit = _checked[id(ts[2])]
+    return (*hit[1:], ts)
 
 
 def check_int8_block(x: torch.Tensor, bq: Record, n_heads: int, n_real: int,
-                     key_mask: Optional[torch.Tensor]) -> None:
+                     key_mask: Optional[torch.Tensor]):
     """Raise ``ValueError`` for what the int8 block does not take: tokens
     [B, n_pad, D] contiguous bf16 with n_pad % 128 == 0 and n_pad <= 1024,
     D % 64 == 0 up to 768, head dim 32 / 64 / 128, hidden % 64 == 0,
-    0 < n_real <= n_pad, a [B, n_pad] key mask, a record of D's shapes."""
+    0 < n_real <= n_pad, a [B, n_pad] key mask, a record of D's shapes
+    (``check_record``, once per record).  Returns the record's tensors."""
     if x.dim() != 3 or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be [B, n_pad, D] bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -245,23 +424,26 @@ def check_int8_block(x: torch.Tensor, bq: Record, n_heads: int, n_real: int,
         raise ValueError(f"unsupported width: d={d}, n_heads={n_heads} "
                          f"(need d % 64 == 0, d <= {MAX_DIM}, head dim in "
                          f"{HEAD_DIMS})")
-    hidden = bq["fc1"]["q"].shape[0]
-    shapes = {"qkv": (3 * d, d), "proj": (d, d), "fc1": (hidden, d),
-              "fc2": (d, hidden)}
+    dev, d_rec, hidden, ts = _record_info(bq)
+    if d_rec != d:
+        raise ValueError(f"a record of width {d_rec} for tokens of width {d}")
     if hidden % 64:
         raise ValueError("MLP hidden width must be a multiple of 64")
-    for name, shape in shapes.items():
-        m = bq[name]
-        if (tuple(m["q"].shape) != shape or m["q"].dtype != torch.int8
-                or m["s"].dtype != torch.float32 or m["b"].dtype != torch.float32
-                or tuple(m["s"].shape) != shape[:1] or tuple(m["b"].shape) != shape[:1]):
-            raise ValueError(f"record entry {name!r} does not fit d={d}: int8 "
-                             f"{shape} codes with f32 [{shape[0]}] scales and bias")
     if not 0 < n_real <= n:
         raise ValueError(f"n_real={n_real} outside (0, {n}]")
     if key_mask is not None and tuple(key_mask.shape) != (b, n):
         raise ValueError(f"key_mask must be [{b}, {n}], got "
                          f"{tuple(key_mask.shape)}")
+    if x.device.type == "cuda" and (dev != x.device or x.data_ptr() % 16):
+        raise ValueError(f"the record lies on {dev}, the tokens on {x.device} "
+                         "(the tokens must be 16-byte aligned)")
+    return ts
+
+
+def _count() -> None:
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def fused_vit_block_int8(x: torch.Tensor, bq: Record, n_heads: int,
@@ -274,9 +456,10 @@ def fused_vit_block_int8(x: torch.Tensor, bq: Record, n_heads: int,
     :param bq: one block's record of ``quantize_vit_blocks``.
     :param n_real: keys at index >= n_real (padding) are excluded.
     :param key_mask: optional [B, n_pad] bool, False keys excluded too.
-    :param scratch: see ``fused_vit_block_int8_reference``.
+    :param scratch: see ``fused_vit_block_int8_reference``; on the card the
+        chain then also writes the codes and row scales.
     """
-    check_int8_block(x, bq, n_heads, n_real, key_mask)
+    ts = check_int8_block(x, bq, n_heads, n_real, key_mask)
     if x.device.type == "cpu":
         return fused_vit_block_int8_reference(x, bq, n_heads, n_real, key_mask,
                                               eps, scratch)
@@ -284,53 +467,142 @@ def fused_vit_block_int8(x: torch.Tensor, bq: Record, n_heads: int,
         raise ValueError(f"no int8 fused block for device {x.device}")
 
     b, n, d = x.shape
-    m = b * n
-    dev = x.device
-    weights = [w.to(dev).contiguous() for w in _record_tensors(bq)]
-    hidden = bq["fc1"]["q"].shape[0]
+    m, hidden, dev = b * n, bq["fc1"]["q"].shape[0], x.device
     mask = (None if key_mask is None
             else key_mask.to(device=dev, dtype=torch.uint8).contiguous())
-    codes = torch.empty(m * (3 * d + hidden), device=dev, dtype=torch.int8)
-    widths = (d, d, d, hidden)
-    offs = [m * sum(widths[:i]) for i in range(5)]
-    q = [codes[offs[i]:offs[i + 1]].view(m, widths[i]) for i in range(4)]
-    scales = torch.empty(4, m, device=dev, dtype=torch.float32)
-    qkv = torch.empty(b, n, 3 * d, device=dev, dtype=torch.bfloat16)
-    attn = torch.empty(b, n, d, device=dev, dtype=torch.bfloat16)
-    x1 = torch.empty(b, n, d, device=dev, dtype=torch.float32)
-    hid = torch.empty(b, n, hidden, device=dev, dtype=torch.float32)
+    # one scratch buffer: qkv bf16, attn bf16, x1 f32, hid f32, the hidden's
+    # row maxima f32, and (asked for) the four stages' codes and row scales
+    sizes = [m * 3 * d * 2, m * d * 2, m * d * 4, m * hidden * 4, m * hidden // PART_COLS * 4]
+    if scratch is not None:
+        sizes += [m * d, m * d, m * d, m * hidden, 4 * m * 4]
+    offs = [0]
+    for size in sizes:
+        offs.append(offs[-1] + -(-size // 256) * 256)
+    buf = torch.empty(offs[-1], device=dev, dtype=torch.uint8)
     out = torch.empty_like(x)
-    tensors = [x, *weights, mask, *q, scales, qkv, attn, x1, hid, out]
-    check_aligned(tensors, "int8 fused block")
-    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    base = buf.data_ptr()
+    ptrs = [base + o for o in offs[:-1]]
+    keep = ptrs[5:] if scratch is not None else [None] * 5
     with torch.cuda.device(dev):
-        rc = _kernels()[0](*ptrs, b, n, d, n_heads, hidden, n_real, eps,
-                           (d // n_heads) ** -0.5,
-                           torch.cuda.current_stream(dev).cuda_stream)
+        rc = _lib().sod_fused_vit_block_int8(
+            x.data_ptr(), *(t.data_ptr() for t in ts),
+            None if mask is None else mask.data_ptr(), *keep, *ptrs[:5], out.data_ptr(),
+            b, n, d, n_heads, hidden, n_real, eps, (d // n_heads) ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_vit_block_int8 launch failed: cudaError {rc}")
-    global launches
-    with _launch_lock:
-        launches += 1
+    _count()
     if scratch is not None:
+        def view(i, dtype, *shape):
+            return buf[offs[i]:offs[i] + sizes[i]].view(dtype).view(*shape)
+
+        widths = (d, d, d, hidden)
+        scales = view(9, torch.float32, 4, m)
         for i, name in enumerate(MATS):
-            scratch[f"q_{name}"], scratch[f"s_{name}"] = q[i], scales[i]
-        scratch.update(qkv=qkv, attn=attn, x1=x1, hid=hid)
+            scratch[f"q_{name}"] = view(5 + i, torch.int8, m, widths[i])
+            scratch[f"s_{name}"] = scales[i]
+        scratch.update(qkv=view(0, torch.bfloat16, b, n, 3 * d),
+                       attn=view(1, torch.bfloat16, b, n, d),
+                       x1=view(2, torch.float32, b, n, d),
+                       hid=view(3, torch.float32, b, n, hidden))
     return out
 
 
+# ---------------------------------------------------------------------------
+# The products alone, for timing and checks
+# ---------------------------------------------------------------------------
+
+def _check_form(form, a, wq, ws, bias, ln, res, part) -> None:
+    """Raise ``ValueError`` for what ``qgemm`` does not take."""
+    if form not in S8_FORMS:
+        raise ValueError(f"form must be one of {tuple(S8_FORMS)}, got {form!r}")
+    a_t, with_ln, res_t, _ = S8_FORMS[form]
+    if a.dim() != 2 or wq.dim() != 2:
+        raise ValueError("a must be [M, K], wq [N, K]")
+    (m, k), (n, kw) = a.shape, wq.shape
+    if kw != k or tuple(ws.shape) != (n,) or tuple(bias.shape) != (n,):
+        raise ValueError(f"shapes do not chain: a {tuple(a.shape)}, wq "
+                         f"{tuple(wq.shape)}, ws {tuple(ws.shape)}, bias {tuple(bias.shape)}")
+    if m % 64 or n % 64 or k % 64:
+        raise ValueError(f"need M, N, K % 64 == 0, got M={m}, N={n}, K={k}")
+    if a.dtype != a_t or wq.dtype != torch.int8 or ws.dtype != torch.float32 \
+            or bias.dtype != torch.float32:
+        raise ValueError(f"{form}: a must be {a_t}, wq int8, ws and bias float32")
+    if (ln is not None) != with_ln or (res is not None) != (res_t is not None) \
+            or (part is not None) != (form == "fc2"):
+        raise ValueError(f"{form} takes ln: {with_ln}, res: {res_t is not None}, "
+                         f"part: {form == 'fc2'}")
+    if with_ln and any(t.shape != (k,) or t.dtype != torch.float32 for t in ln):
+        raise ValueError(f"LayerNorm weight and bias must be f32 [{k}]")
+    if form != "fc2" and k > MAX_ROW:
+        raise ValueError(f"{form} takes rows of K <= {MAX_ROW}, got {k}")
+    if res is not None and (tuple(res.shape) != (m, n) or res.dtype != res_t):
+        raise ValueError(f"res must be {res_t} [{m}, {n}]")
+    if part is not None and (tuple(part.shape) != (m, k // PART_COLS)
+                             or part.dtype != torch.float32):
+        raise ValueError(f"part must be f32 [{m}, {k // PART_COLS}]")
+    if s8_plan(m, n, k, S8_ROW_ELEM[form])[0] < 0:
+        raise ValueError(f"no tile of the s8 product fits K={k} in shared memory")
+
+
+def qgemm(form: str, a: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+          bias: torch.Tensor, ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          res: Optional[torch.Tensor] = None, part: Optional[torch.Tensor] = None,
+          eps: float = 1e-6, scratch: Optional[dict] = None):
+    """One of the chain's four products alone, its row quantiser in its
+    prologue, as the chain launches it (``qgemm_reference`` says what each
+    form computes); returns (out, fc1's row maxima or None).  The kernel for
+    a CUDA tensor, raising if the build or the launch fails; the plain
+    version for a tensor on the CPU.
+
+    :param scratch: a dict that receives the codes ``q`` and row scales
+        ``s`` of the quantised rows."""
+    _check_form(form, a, wq, ws, bias, ln, res, part)
+    if a.device.type == "cpu":
+        return qgemm_reference(form, a, wq, ws, bias, ln, res, part, eps, scratch)
+    if a.device.type != "cuda":
+        raise ValueError(f"no s8 product for device {a.device}")
+    tensors = [a, *(ln or (None, None)), wq, ws, bias, res, part]
+    if any(t is not None and (t.device != a.device or not t.is_contiguous()
+                              or t.data_ptr() % 16) for t in tensors):
+        raise ValueError("s8 product tensors must be contiguous, 16-byte aligned "
+                         "and on a's device")
+    (m, k), n = a.shape, wq.shape[0]
+    out = torch.empty(m, n, device=a.device, dtype=S8_FORMS[form][3])
+    if form == "fc1":                        # the row maxima it writes
+        part = tensors[-1] = torch.empty(m, n // PART_COLS, device=a.device,
+                                         dtype=torch.float32)
+    q = s = None
+    if scratch is not None:
+        q = torch.empty(m, k, device=a.device, dtype=torch.int8)
+        s = torch.empty(m, device=a.device, dtype=torch.float32)
+    ptrs = [None if t is None else t.data_ptr() for t in (*tensors, out, q, s)]
+    with torch.cuda.device(a.device):
+        rc = _lib().sod_qgemm(list(S8_FORMS).index(form), *ptrs, m, n, k, eps,
+                              torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"s8 product launch failed: cudaError {rc}")
+    global form_launches
+    with _launch_lock:
+        form_launches += 1
+    if scratch is not None:
+        scratch.update(q=q, s=s)
+    return out, part if form == "fc1" else None
+
+
 def quant_rows_cuda(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain's row-quantise launch alone on f32 rows [M, K] on the card
-    (M % 4 == 0): (q int8 [M, K], s f32 [M]); ``quant_rows``'s arithmetic."""
+    """The chain's row quantiser alone on f32 rows [M, K] on the card
+    (M % 4 == 0, K % 8 == 0): (q int8 [M, K], s f32 [M]); ``quant_rows``'s
+    arithmetic."""
     if h.device.type != "cuda" or h.dtype != torch.float32 or h.dim() != 2 \
-            or not h.is_contiguous() or h.shape[0] % 4:
+            or not h.is_contiguous() or h.shape[0] % 4 or h.shape[1] % 8:
         raise ValueError("quant_rows_cuda takes contiguous f32 [M, K] rows on "
-                         "the card, M % 4 == 0")
+                         "the card, M % 4 == 0, K % 8 == 0")
     q = torch.empty(h.shape, device=h.device, dtype=torch.int8)
     s = torch.empty(h.shape[0], device=h.device, dtype=torch.float32)
     with torch.cuda.device(h.device):
-        rc = _kernels()[1](h.data_ptr(), q.data_ptr(), s.data_ptr(), *h.shape,
-                           torch.cuda.current_stream(h.device).cuda_stream)
+        rc = _lib().sod_quant_rows_f32(h.data_ptr(), q.data_ptr(), s.data_ptr(), *h.shape,
+                                       torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_rows launch failed: cudaError {rc}")
     return q, s
@@ -339,7 +611,7 @@ def quant_rows_cuda(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def qgemm_bias_bf16_cuda(q: torch.Tensor, row_scale: torch.Tensor,
                          wq: torch.Tensor, ws: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
-    """The chain's s8 x s8 -> s32 product launch alone, with the QKV
+    """The chain's s8 x s8 -> s32 product on given codes, with the QKV
     epilogue: bf16(f32(q . wq^T) * row_scale * ws + bias) for codes
     q [M, K], wq [N, K] on the card (M, N, K % 64 == 0)."""
     (m, k), n = q.shape, wq.shape[0]
@@ -350,8 +622,8 @@ def qgemm_bias_bf16_cuda(q: torch.Tensor, row_scale: torch.Tensor,
     tensors = [q, row_scale, wq, ws, bias, out]
     check_aligned(tensors, "int8 product")
     with torch.cuda.device(q.device):
-        rc = _kernels()[2](*(t.data_ptr() for t in tensors), m, n, k,
-                           torch.cuda.current_stream(q.device).cuda_stream)
+        rc = _lib().sod_qgemm_bias_bf16(*(t.data_ptr() for t in tensors), m, n, k,
+                                        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8 product launch failed: cudaError {rc}")
     return out

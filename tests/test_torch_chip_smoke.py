@@ -91,3 +91,27 @@ def test_gemm_bound_and_phase_3_shapes():
     assert [f[1] for f in cs.GEMM_FORMS] == ["bias_bf16", "res_f32", "gelu_bf16", "res_bf16"]
     assert {d for d, _ in cs.K1_WIDTHS} >= {768, 1024}
     assert all(d // h in (32, 64, 128) for d, h in cs.K1_WIDTHS)
+
+
+def test_s8_form_bound_and_phase_14_products():
+    """K8's four s8 products at B=8 (7168 rows, d 384, hidden 1536) are bound
+    by their bytes at the H100's 3.35 TB/s: QKV 22.5 MB against 6.34 GOP
+    (3.2 us at 1,979 TOP/s), proj 22.2 MB, fc1 56.3 MB and fc2 61.8 MB, the
+    f32 residual and hidden that K8's rounding points keep; phase 14 times
+    them at those shapes, each beside the bf16 form of the same product, and
+    holds K8's chain to at most six launches a block."""
+    import chip_smoke as cs
+
+    want = {"qkv": 22474752, "proj": 22170624, "fc1": 56343552, "fc2": 61836288}
+    for form, n, k, bf16_form in cs.S8_FORMS:
+        b = cs.s8_form_bound(form, cs.S8_ROWS, n, k)
+        assert b["bound_by"] == "bytes", form
+        assert abs(b["bound_ms"] - want[form] / 3.35e12 * 1e3) <= 1e-12, form
+        assert bf16_form in [f[1] for f in cs.GEMM_FORMS]
+    ops_ms = 2 * 7168 * 1152 * 384 / 1979e12 * 1e3
+    assert abs(ops_ms - 0.0032) <= 1e-4
+    assert [f[0] for f in cs.S8_FORMS] == ["qkv", "proj", "fc1", "fc2"]
+    assert cs.S8_ROWS == 8 * 896 == cs.GEMM_REPORT_ROWS
+    assert cs.K8_MAX_LAUNCHES == 6
+    assert cs.S8["source"] == "sod_tpu_torch/csrc/vit_block.cuh"
+    assert cs.S8["replaces"].startswith("sod_tpu/ops/fused_block_int8.py:")

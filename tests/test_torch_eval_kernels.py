@@ -9,7 +9,11 @@ versions on the card).
 * K7 ``ub_inter_cnt``: counts exactly equal to ``_ub_pallas`` at upsample
   factors 8, 4 and 2 (``scale_factor`` 1, 2, 4); the inputs hold no
   upsampled value within 1e-6 of 0.5, where a different product order
-  could flip a count.
+  could flip a count.  A numpy emulation of the CUDA kernel's scheme (bands
+  of canvas rows, the W pass once per low row a band touches, 32-column
+  ballots of bits, popcounts) gives the same counts, and the band plan
+  covers every tap of every row at canvas sides 150-400 and each upsample
+  ratio the plain version takes.
 * K5 ``fused_ln_attn_infer`` and the K4 forward ``fused_ln_mlp``: bf16
   outputs within one bf16 ulp at their magnitude of ``_fwd_pallas_large``
   and ``_rows_pallas`` (K1's test standard: 1e-2 absolute plus 2^-7
@@ -167,6 +171,77 @@ def test_ub_wrapper_runs_plain_version_on_cpu():
         fused_ub.ub_inter_cnt(args[0], args[1][:, :-1], *args[2:])
     with pytest.raises(ValueError):
         fused_ub.taps(np.ones((4, 3), np.float32))       # 3 taps: not bilinear
+
+
+def _bits(mask):
+    """Rows of booleans [R, W] as the kernel's 32-column ballot words."""
+    pad = -mask.shape[1] % 32
+    m = np.pad(mask, ((0, 0), (0, pad)))
+    return np.packbits(m, axis=1, bitorder="little").view("<u4")
+
+
+def _popcount(words):
+    return int(np.unpackbits(words.view(np.uint8)).sum())
+
+
+def _band_emulation(low, gt, rowv, colv):
+    """The CUDA kernel's scheme in numpy f32: per (image, band of canvas
+    rows) the valid and GT bits, then per query the W pass over the band's
+    low rows and the H pass, ballots and popcounts."""
+    b, q, h0, w0 = low.shape
+    hh, ww = gt.shape[1:]
+    r_idx, r_w, c_idx, c_w, plan = fused_ub._host_taps(h0, hh, w0, ww)
+    rows = fused_ub.BAND_ROWS
+    inter, cnt = np.zeros((b, q), np.int64), np.zeros((b, q), np.int64)
+    for bi in range(b):
+        for band, (lo, n_lr) in enumerate(plan):
+            rr = np.arange(band * rows, min((band + 1) * rows, hh))
+            valid = rowv[bi, rr][:, None] & colv[bi][None, :]
+            vbits, gbits = _bits(valid), _bits(valid & (gt[bi, rr] > 0))
+            t = r_idx[rr] - lo
+            assert t.min() >= 0 and t.max() < n_lr
+            for qi in range(q):
+                lows = low[bi, qi, lo:lo + n_lr]
+                y = lows[:, c_idx[:, 0]] * c_w[:, 0] + lows[:, c_idx[:, 1]] * c_w[:, 1]
+                up = r_w[rr, :1] * y[t[:, 0]] + r_w[rr, 1:] * y[t[:, 1]]
+                pred = _bits(up > 0.5) & vbits
+                inter[bi, qi] += _popcount(pred & gbits)
+                cnt[bi, qi] += _popcount(pred)
+    return inter.astype(np.float32), cnt.astype(np.float32)
+
+
+@pytest.mark.parametrize("scale_factor", [1, 2, 4])
+def test_ub_band_scheme_equals_plain_and_pallas(scale_factor):
+    up = 8 // scale_factor
+    low, gt, rowv, colv, wh, wwt = _ub_case(20 + scale_factor, up)
+    got = _band_emulation(low, gt, rowv, colv)
+    ref = fused_ub.ub_inter_cnt_reference(_t(low), _t(gt), _t(rowv), _t(colv))
+    pallas = _ub_pallas(*(jnp.asarray(a) for a in (low, gt, rowv, colv)), wh, wwt,
+                        interpret=True)
+    for g, r, p in zip(got, ref, pallas):
+        assert g.max() > 0
+        np.testing.assert_array_equal(g, r.numpy())
+        np.testing.assert_array_equal(g, np.asarray(p))
+
+
+@pytest.mark.parametrize("ratio", [8, 4, 2, 3, 1])
+def test_ub_band_plan_covers_every_tap(ratio):
+    """Every canvas row's two taps lie in its band's low rows, a weight-0
+    tap sits on its row's real tap, and at an integer ratio a band reads at
+    most BAND_ROWS / ratio + 2 low rows, so a block's shared memory holds
+    20 queries' counts at every canvas side from 150 to 400."""
+    rows = fused_ub.BAND_ROWS
+    for side in range(150, 401, 2):
+        h0 = -(-side // ratio)
+        idx, w = fused_ub.taps(_resize_matrix(h0, side, "bilinear"))
+        assert np.all((w[:, 1] != 0) | (idx[:, 1] == idx[:, 0]))
+        plan = fused_ub.band_plan(idx)
+        assert len(plan) == -(-side // rows)
+        for band, (lo, n) in enumerate(plan):
+            t = idx[band * rows:(band + 1) * rows]
+            assert lo == t.min() and lo + n - 1 == t.max() and 0 <= lo and lo + n <= h0
+            assert n <= -(-rows // ratio) + 2
+        assert fused_ub.smem_bytes(rows, side, int(plan[:, 1].max()), 20, h0) <= fused_ub.MAX_SMEM
 
 
 # --------------------------------------------------------------- K5, K4
