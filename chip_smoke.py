@@ -61,9 +61,12 @@ Phases, each printed as it passes; any failure exits non-zero:
 9. eval kernels at the eval shape (B=16, 400 px canvas: 2501 tokens,
    d 384): K5 and the K4 forward within one bf16 ulp of their plain
    versions (unmasked and masked), K6 on [16, 2, 400, 400] masks exactly
-   equal, K7 on [16, 20, 100, 100] -> 400 px within the count of pixels
-   whose plain upsampled value lies within 1e-6 of 0.5; kernel and plain
-   ms (K6 at B=16 and B=4);
+   equal (and on [3, 2, 400, 397] with uint8 validity, its scalar path),
+   one launch a call, K7 on [16, 20, 100, 100] -> 400 px within the count
+   of pixels whose plain upsampled value lies within 1e-6 of 0.5; kernel
+   and plain ms (K6 at B=16 and B=4, eager and from a CUDA graph, and its
+   size sweep: B = 1, 4, 16 on 224 and 400 px canvases beside its plain
+   version);
 10. Evaluator: a 32-image synthetic DUTS-TE (200-400 px) at B=16 through
    the default path and ``use_fused_eval``, each through the kernels and
    through the plain versions: encoder-token and low-res-mask agreement,
@@ -125,6 +128,23 @@ Run right after phase 5, beside the bf16 service of phase 4:
    its s8 products and attention); three ``/predict`` requests; ``python -m
    sod_tpu_torch.cli.predict``'s ``main`` with ``--quantize int8`` over five
    PNGs (two with one stem) in batches of 4, its files checked.
+
+Run after phase 13:
+
+16. pseudo-mask generation at the live config's full width: ``MaskGenerator``
+   (MoCo-v2 and SwAV dilated ResNet-50s and DINO ViT-S/16 with seeded random
+   weights, spectral clustering at k 2, 3, 4 from one eigenbasis, x2
+   feature upsample, B 16, the 784- and 3136-node subspace path) on 32
+   synthetic 150-400 px images, with cuDNN's TF32 default on around it (the
+   generator turns it off itself): every RLE 224 x 224, neither empty nor
+   full; img/s; per backbone the device time of extract and cluster for a
+   batch; the card against the port on the CPU for 4 images (features
+   within 1e-3 relative, labels of each k agreeing on >= 0.98 of the nodes
+   up to a permutation, from the card's features); printed, not held: the
+   subspace labels against the dense ``eigh`` ones and the smallest gap
+   among the first k + 1 eigenvalues; a profile of one batch (device busy,
+   idle share); ``python -m sod_tpu_torch.cli.generate_masks``'s ``main`` on
+   the card by default over the same images.
 
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
@@ -1496,6 +1516,34 @@ def timed_pair(kern, plain, iters: int = 10):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def k6_size_sweep():
+    """Does K6 want a size threshold on this card (``sod_tpu``'s
+    ``_MIN_PIXELS`` is a TPU's)?  K6 and its plain version at B = 1, 4, 16
+    on 224 and 400 px canvases, every pixel valid: kernel eager and from a
+    CUDA graph, plain eager, in turns."""
+    import torch
+
+    from sod_tpu_torch.ops import fsweep
+
+    plain_wins = []
+    for side in (224, 400):
+        for b in (1, 4, 16):
+            m = torch.rand(b, 2, side, side, device="cuda")
+            g = (torch.rand(b, side, side, device="cuda") > 0.5).float()
+            rv = torch.ones(b, side, dtype=torch.bool, device="cuda")
+            cv = torch.ones(b, side, dtype=torch.bool, device="cuda")
+            k_ms, p_ms = timed_pair(lambda: fsweep.fmax_tp_cnt(m, g, rv, cv),
+                                    lambda: fsweep.fmax_tp_cnt_reference(m, g, rv, cv), 10)
+            k_graph = graph_ms(lambda: fsweep.fmax_tp_cnt(m, g, rv, cv))
+            print(f"  K6 size sweep B={b:<2d} {side} px: kernel {k_ms:.4f} ms eager, "
+                  f"{k_graph:.4f} ms graph; plain {p_ms:.4f} ms ({p_ms / k_ms:.0f}x)",
+                  flush=True)
+            if p_ms < k_ms:
+                plain_wins.append((b, side))
+    print(f"  K6 size threshold: the plain version is faster at "
+          f"{plain_wins or 'no size measured'}", flush=True)
+
+
 def eval_kernels_check(b: int = EVAL_B, side: int = EVAL_SIDE):
     """Phase 9: K5, the K4 forward, K6 and K7 against their plain versions
     at the eval shape; returns {name: (max_abs or count diff, kernel ms,
@@ -1579,14 +1627,32 @@ def eval_kernels_check(b: int = EVAL_B, side: int = EVAL_SIDE):
               f"{2 * got[0].numel()} counts differ (must be 0)", flush=True)
         if diff6:
             raise AssertionError("K6 counts differ from its plain version")
+        # uint8 validity and a width that is not a multiple of 4 (the scalar path)
+        odd = (masks_t[:3, :, :, :397].contiguous(), gt_t[:3, :, :397].contiguous(),
+               rowv[:3].to(torch.uint8), colv[:3, :397].to(torch.uint8).contiguous())
+        diff_odd = sum(int((g != r).sum()) for g, r in zip(
+            fsweep.fmax_tp_cnt(*odd), fsweep.fmax_tp_cnt_reference(*odd)))
+        print(f"  K6 masks [3, 2, 400, 397], uint8 rowv / colv: {diff_odd} counts differ "
+              f"(must be 0)", flush=True)
+        if diff_odd:
+            raise AssertionError("K6 counts differ from its plain version (scalar path)")
+        before = fsweep.launches
+        fsweep.fmax_tp_cnt(masks_t, gt_t, rowv, colv)
+        if fsweep.launches != before + 1:
+            raise AssertionError("K6 must count one launch per call")
         t16 = timed_pair(lambda: fsweep.fmax_tp_cnt(masks_t, gt_t, rowv, colv),
-                         lambda: fsweep.fmax_tp_cnt_reference(masks_t, gt_t, rowv, colv), 5)
+                         lambda: fsweep.fmax_tp_cnt_reference(masks_t, gt_t, rowv, colv), 20)
+        g16 = graph_ms(lambda: fsweep.fmax_tp_cnt(masks_t, gt_t, rowv, colv))
         m4, g4, r4, c4 = masks_t[:4].contiguous(), gt_t[:4], rowv[:4], colv[:4]
         t4 = timed_pair(lambda: fsweep.fmax_tp_cnt(m4, g4, r4, c4),
-                        lambda: fsweep.fmax_tp_cnt_reference(m4, g4, r4, c4), 5)
-        print(f"  K6 B=16: kernel {t16[0]:.4f} ms, plain {t16[1]:.4f} ms; B=4: kernel "
-              f"{t4[0]:.4f} ms, plain {t4[1]:.4f} ms per call", flush=True)
+                        lambda: fsweep.fmax_tp_cnt_reference(m4, g4, r4, c4), 20)
+        g4_ms = graph_ms(lambda: fsweep.fmax_tp_cnt(m4, g4, r4, c4))
+        print(f"  K6 B=16: kernel {t16[0]:.4f} ms eager, {g16:.4f} ms from a CUDA graph, "
+              f"plain {t16[1]:.4f} ms; B=4: kernel {t4[0]:.4f} ms eager, {g4_ms:.4f} ms "
+              f"graph, plain {t4[1]:.4f} ms per call", flush=True)
         out["K6"] = (diff6, *t16)
+        out["K6 graph_ms"] = g16
+        k6_size_sweep()
 
         # K7 at [B, 20, 100, 100] -> 400 px; sigmoid-like values around 0.5
         low = torch.from_numpy(1 / (1 + np.exp(-3 * rng.standard_normal(
@@ -2320,6 +2386,154 @@ K8 = {"name": "fused_vit_block_int8", "route": "cuda",
 # first quantiser's share <= 7.3e-7, the later ones' <= 3.9e-4, never by more
 # than one code)
 K8_MAX_ULPS, K8_FIRST_FLIPS, K8_LATER_FLIPS, K8_MIN_CORR_K1 = 2, 1e-4, 5e-3, 0.999
+MASKGEN_IMAGES = 32                      # two batches of the generator's 16
+MASKGEN_FEATURE_REL, MASKGEN_LABEL_AGREEMENT = 1e-3, 0.98
+
+
+def write_maskgen_images(root: str, n: int, seed: int = 16) -> list:
+    """JPEGs of 150-400 px: a bright ellipse on a textured dark ground."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(150, 401, 2))
+        yy, xx = np.mgrid[:h, :w]
+        tex = 40 + 25 * np.sin(xx / rng.uniform(3, 9)) * np.cos(yy / rng.uniform(3, 9))
+        img = np.repeat(tex[..., None], 3, 2) + rng.normal(0, 6, (h, w, 3))
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.15, 0.3) * h, rng.uniform(0.15, 0.3) * w
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        img[inside] = rng.uniform(150, 240, 3) + rng.normal(0, 6, (int(inside.sum()), 3))
+        paths.append(os.path.join(root, f"mg_{i:03d}.jpg"))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(paths[-1], quality=92)
+    return paths
+
+
+def _label_agreement(a, b, k: int) -> float:
+    """Share of nodes with equal labels under the best permutation of b's."""
+    import itertools
+
+    return max(float(np.mean(np.asarray(p)[b] == a)) for p in itertools.permutations(range(k)))
+
+
+def maskgen_check():
+    """Phase 16: pseudo-mask generation (``MaskGenerator``, the
+    ``generate_masks`` CLI) at the live config's full width on the card."""
+    import torch
+
+    from sod_tpu_torch.cli import generate_masks
+    from sod_tpu_torch.data.clusterings import _build_lsym
+    from sod_tpu_torch.data.custom import CustomDataset
+    from sod_tpu_torch.data.mask_generator import MaskGenerator, f32_math
+    from sod_tpu_torch.ops import rle
+
+    # the generator must turn TF32 off itself: the card's defaults around it
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    tmp = tempfile.mkdtemp(prefix="sod_maskgen_")
+    try:
+        paths = write_maskgen_images(tmp, MASKGEN_IMAGES)
+        gen = MaskGenerator(device="cuda")             # mocov2, swav, dino; spectral; k 2 3 4
+        gen(paths[:gen.batch_size])                    # warm-up: cuDNN, the allocator
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        masks = gen(paths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        bad = [name for name, enc in masks.items()
+               if rle.decode(enc).shape != (224, 224) or not 0 < rle.decode(enc).sum() < 224 * 224]
+        print(f"  MaskGenerator({gen.feature_types}, {gen.cluster_type}, k {gen.cluster_sizes}, "
+              f"scale {gen.scale_factor}, B {gen.batch_size}) on {len(paths)} images: "
+              f"{len(masks)} RLEs, {len(bad)} empty, full or not 224 x 224; "
+              f"{len(paths) / wall:.2f} img/s ({wall:.3f} s); the port's kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} or 'none (plain PyTorch)'}", flush=True)
+        if len(masks) != len(paths) or bad:
+            raise AssertionError(f"maskgen: bad or missing masks {bad}")
+
+        # device time per batch of extract and cluster per backbone (batch 2)
+        ds = CustomDataset(paths[16:32], image_size=224, square=True, raw_uint8=True)
+        u8 = torch.from_numpy(np.stack([ds[i]["image_u8"] for i in range(16)])).cuda()
+        busy = 0.0
+        with torch.inference_mode(), f32_math():
+            for ft in gen.feature_types:
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                e[0].record()
+                f = gen.features(ft, u8)
+                e[1].record()
+                gen.cluster(f)
+                e[2].record()
+                torch.cuda.synchronize()
+                ext, clu = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+                busy += ext + clu
+                print(f"  {ft}: features {tuple(f.shape)}, extract {ext:.3f} ms, cluster "
+                      f"{clu:.3f} ms per batch of 16 (CUDA events)", flush=True)
+                del f
+        print(f"  per batch: {busy:.3f} ms of the stream's time (events; launch gaps "
+              f"included) against {wall * 1e3 / 2:.3f} ms of host clock in the timed call",
+              flush=True)
+
+        # the card against the port on the CPU: the first 4 images of a batch
+        u4 = u8[:4]
+        with torch.inference_mode():
+            for ft in gen.feature_types:
+                cpu = MaskGenerator(device="cpu", params={ft: {
+                    k: v.cpu() for k, v in gen._get_params(ft).state_dict().items()}})
+                with f32_math():
+                    f_card = gen.features(ft, u4)
+                    lab_card = gen.cluster(f_card)
+                    n = f_card.shape[1] * f_card.shape[2]
+                    lab_dense = gen.cluster(f_card, eigh_max_n=n)
+                    lam = torch.linalg.eigvalsh(_build_lsym(f_card.reshape(4, n, -1)).double())
+                f_cpu = cpu.features(ft, u4.cpu())
+                rel = float((f_card.cpu() - f_cpu).abs().max() / f_cpu.abs().max())
+                lab_cpu = cpu.cluster(f_card.cpu())
+                line = f"  {ft}: features card vs CPU max rel {rel:.3g} (bound {MASKGEN_FEATURE_REL})"
+                ok = rel <= MASKGEN_FEATURE_REL
+                for k in gen.cluster_sizes:
+                    a, c, d = (x[k].reshape(4, -1).cpu().numpy() for x in (lab_card, lab_cpu, lab_dense))
+                    agree = np.mean([_label_agreement(a[i], c[i], k) for i in range(4)])
+                    dense = np.mean([_label_agreement(a[i], d[i], k) for i in range(4)])
+                    gap = float((lam[:, 1:k + 1] - lam[:, :k]).min())
+                    line += (f"; k={k}: card vs CPU {agree:.4f} (bound {MASKGEN_LABEL_AGREEMENT}), "
+                             f"subspace vs dense eigh {dense:.4f}, smallest gap among the first "
+                             f"{k + 1} eigenvalues {gap:.3g}")
+                    ok = ok and agree >= MASKGEN_LABEL_AGREEMENT
+                print(line + (" -> ok" if ok else " -> FAIL"), flush=True)
+                if not ok:
+                    raise AssertionError(f"maskgen {ft}: the card disagrees with the CPU")
+                del f_card, lab_card, lab_dense, lam
+
+        # torch.profiler over one batch: the idle share is the kernels' busy
+        # time against the batch's unprofiled time
+        gen16 = paths[:16]
+        t0 = time.perf_counter()
+        gen(gen16)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile_steps(gen, gen16, 1, batch_ms, unit="batch")
+
+        # the CLI on the card by default
+        out = os.path.join(tmp, "pseudo_masks.json")
+        cli_masks = generate_masks.main(["--p_images", os.path.join(tmp, "*.jpg"), "--fp", out])
+        same = sum(cli_masks.get(k) == v for k, v in masks.items())
+        print(f"  cli.generate_masks: {len(cli_masks)} masks in {out}, {same} equal to the "
+              f"generator's", flush=True)
+        if set(cli_masks) != set(masks):
+            raise AssertionError("generate_masks CLI: missing masks")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    idle = prof["idle_share"]
+    phase(16, f"pseudo-mask generation at full width on the card ({len(paths) / wall:.2f} "
+              f"img/s, idle share {'not measured' if idle is None else f'{idle:.3f}'}), the "
+              f"card within the bounds of the port on the CPU")
+
+
 SERVE_N = 785                            # tokens of a 224 px image at patch 8
 K8_MAX_LAUNCHES = 6                      # kernel launches of one K8 block call, at most
 S8 = dict(route="cuda", source="sod_tpu_torch/csrc/vit_block.cuh",
@@ -2752,6 +2966,7 @@ def main():
     tk = fused_train_kernels_check()
     step_counts, _, _ = fused_train_step_check()
     tr = fused_trainer_check()
+    maskgen_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)
@@ -2785,7 +3000,8 @@ def main():
                     tk["bound"]["K4 save"]),
               entry(K4_BWD, tr["K4 bwd"], *tk["K4 bwd"], tk["bound"]["K4 bwd"]),
               entry(K5, fused_run["K5"], *ev["K5"], ev["bound"]["K5"]),
-              entry(K6, default_run["K6"], *ev["K6"], ev["bound"]["K6"]),
+              entry(K6, default_run["K6"], *ev["K6"], ev["bound"]["K6"],
+                    graph_ms=ev["K6 graph_ms"]),
               entry(K7, fused_run["K7"], *ev["K7"], ev["bound"]["K7"])]
     # gemm_kernel in K1's four forms at B=8 (device time, from CUDA graphs).
     # The main path launches them inside K1's chain, not through ops/gemm.py:

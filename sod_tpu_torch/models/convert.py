@@ -8,7 +8,7 @@ import.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -64,22 +64,73 @@ def vit_blocks_from_jax(blocks: dict, prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def vit_state_dict_from_jax(enc: dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A ``sod_tpu`` ViT tree -> the DINO ``deit_small`` state-dict arrays
+    (``sod_tpu.models.convert.export_vit``'s keys and arrays)."""
+    out: Dict[str, np.ndarray] = {}
+    pw = np.asarray(enc["patch_embed"]["w"])         # (p*p*c, D), rows (py, px, c)
+    d = pw.shape[1]
+    p = int(round((pw.shape[0] // 3) ** 0.5))
+    out[prefix + "patch_embed.proj.weight"] = np.ascontiguousarray(
+        pw.reshape(p, p, 3, d).transpose(3, 2, 0, 1))
+    out[prefix + "patch_embed.proj.bias"] = np.asarray(enc["patch_embed"]["b"])
+    out[prefix + "cls_token"] = np.asarray(enc["cls_token"])
+    out[prefix + "pos_embed"] = np.asarray(enc["pos_embed"])
+    out.update(vit_blocks_from_jax(enc["blocks"], prefix + "blocks."))
+    _ln(out, prefix + "norm", enc["norm"])
+    return out
+
+
+def deit_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """A ``sod_tpu`` distilled-DeiT tree -> timm's state-dict arrays."""
+    out = vit_state_dict_from_jax(params)
+    out["dist_token"] = np.asarray(params["dist_token"])
+    for head in ("head", "head_dist"):
+        if head in params:
+            _linear(out, head, params[head])
+    return out
+
+
+def _conv_oihw(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))   # HWIO -> OIHW
+
+
+def _bn(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    out[f"{prefix}.running_mean"] = np.asarray(p["mean"])
+    out[f"{prefix}.running_var"] = np.asarray(p["var"])
+
+
+def resnet_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """A ``sod_tpu`` ResNet tree (any family member, either stem) ->
+    torchvision's state-dict arrays: convolutions HWIO -> OIHW, BN
+    scale / bias / mean / var -> weight, bias, running_mean, running_var,
+    ``down_conv`` / ``down_bn`` -> ``downsample.0`` / ``downsample.1``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params["prefix"].items():
+        if name.startswith("conv"):
+            out[f"{name}.weight"] = _conv_oihw(p)
+        else:
+            _bn(out, name, p)
+    for li in range(1, 5):
+        blocks = params[f"layer{li}"]
+        for b in range(len(blocks)):
+            blk, pre = blocks[f"block{b}"], f"layer{li}.{b}"
+            for name, p in blk.items():
+                key = {"down_conv": "downsample.0", "down_bn": "downsample.1"}.get(name, name)
+                if "conv" in name:
+                    out[f"{pre}.{key}.weight"] = _conv_oihw(p)
+                else:
+                    _bn(out, f"{pre}.{key}", p)
+    return out
+
+
 def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     """A ``sod_tpu`` MaskFormer tree (numpy leaves, e.g. from
     ``jax.device_get``) -> the reference's state-dict arrays: the same
     keys and arrays as ``sod_tpu.models.convert.export_maskformer``."""
-    out: Dict[str, np.ndarray] = {}
-    enc = params["encoder"]
-    pw = np.asarray(enc["patch_embed"]["w"])         # (p*p*c, D), rows (py, px, c)
-    d = pw.shape[1]
-    p = int(round((pw.shape[0] // 3) ** 0.5))
-    out["encoder.patch_embed.proj.weight"] = np.ascontiguousarray(
-        pw.reshape(p, p, 3, d).transpose(3, 2, 0, 1))
-    out["encoder.patch_embed.proj.bias"] = np.asarray(enc["patch_embed"]["b"])
-    out["encoder.cls_token"] = np.asarray(enc["cls_token"])
-    out["encoder.pos_embed"] = np.asarray(enc["pos_embed"])
-    out.update(vit_blocks_from_jax(enc["blocks"], "encoder.blocks."))
-    _ln(out, "encoder.norm", enc["norm"])
+    out = vit_state_dict_from_jax(params["encoder"], "encoder.")
 
     dec = params["decoder"]
     for i in range(_depth(dec["layers"])):
@@ -133,3 +184,70 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
             obj = obj[key]
             break
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoints of the pseudo-mask backbones: the layout is already the
+# port's, so these strip wrappers and check keys (``sod_tpu`` converts
+# layouts here, ``sod_tpu/models/convert.py:68,271,298``)
+# ---------------------------------------------------------------------------
+
+_RESNET_PREFIXES = ("module.encoder_q.", "module.", "encoder_q.", "network.")
+
+
+def _strip_resnet_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """MoCo-v2 / SwAV / torchvision / reference naming -> torchvision's:
+    the first wrapper prefix and the reference's ``prefix.`` stem stripped,
+    the heads and ``num_batches_tracked`` dropped."""
+    out = {}
+    for k, v in sd.items():
+        for p in _RESNET_PREFIXES:
+            if k.startswith(p):
+                k = k[len(p):]
+                break
+        if any(w in k for w in ("fc.", "projection_head", "prototypes",
+                                "num_batches_tracked")):
+            continue
+        out[k.replace("prefix.", "")] = v
+    return out
+
+
+def _require(sd: Mapping[str, Any], keys, what: str) -> None:
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"{what}: {len(missing)} keys missing, e.g. {missing[:5]}")
+
+
+def convert_vit(sd: Mapping[str, Any], depth: int = 12, prefix: str = "") -> Dict[str, Any]:
+    """A DINO ``deit_small``-named state dict -> the keys of the port's
+    ``VisionTransformer`` (``prefix`` stripped); ``KeyError`` when one is
+    missing."""
+    keys = ["patch_embed.proj.weight", "patch_embed.proj.bias", "cls_token", "pos_embed",
+            "norm.weight", "norm.bias"]
+    for i in range(depth):
+        for m in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1", "mlp.fc2"):
+            keys += [f"blocks.{i}.{m}.weight", f"blocks.{i}.{m}.bias"]
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    _require(sd, keys, "ViT state dict")
+    return {k: sd[k] for k in keys}
+
+
+def convert_resnet50(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A MoCo-v2 / SwAV / torchvision ResNet-50 state dict -> the port's
+    ``ResNet`` keys (``_strip_resnet_prefix``); ``KeyError`` when one is
+    missing."""
+    sd = _strip_resnet_prefix(sd)
+
+    def bn(p):
+        return [f"{p}.{n}" for n in ("weight", "bias", "running_mean", "running_var")]
+
+    keys = ["conv1.weight", *bn("bn1")]
+    for li, n in enumerate((3, 4, 6, 3), start=1):
+        for b in range(n):
+            p = f"layer{li}.{b}"
+            for i in (1, 2, 3):
+                keys += [f"{p}.conv{i}.weight", *bn(f"{p}.bn{i}")]
+            if b == 0:
+                keys += [f"{p}.downsample.0.weight", *bn(f"{p}.downsample.1")]
+    _require(sd, keys, "ResNet-50 state dict")
+    return {k: sd[k] for k in keys}

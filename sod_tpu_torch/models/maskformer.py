@@ -43,7 +43,8 @@ class MaskFormerConfig:
 
 # (Config field, the one value the port runs, where the rest is queued)
 _LIVE_ONLY = (
-    ("arch", "vit_small", "ROADMAP item 8, models/resnet.py"),
+    ("arch", "vit_small",
+     "ROADMAP item 13, the ResNet-50 MaskFormer's linear_layer adapter"),
     ("use_binary_classifier", True,
      "ROADMAP item 13, the non-bc head and the Hungarian loss branch"),
     ("learnable_pixel_decoder", False,

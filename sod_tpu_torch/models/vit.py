@@ -7,10 +7,12 @@ Parameter names follow the reference's ``vision_transformer.py`` (DINO
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -323,3 +325,29 @@ def pos_embed_canvas_device(pos_embed: torch.Tensor, gh: torch.Tensor,
     out = torch.where(ok[..., None], out, torch.zeros_like(out))
     cls = pos_embed[0, :1].float().expand(b, 1, d)
     return torch.cat([cls, out.reshape(b, gh_c * gw_c, d)], dim=1)
+
+
+def random_vit_state_dict(model: nn.Module, seed: int) -> dict:
+    """Seeded f32 weights for a ``VisionTransformer`` (or a model built on
+    one, the DeiT), from ``sod_tpu``'s ``vit_init`` distributions drawn with
+    numpy (``jax.random`` cannot be matched): the block linears, the
+    pos-embed, the distillation token and the heads N(0, 0.02) clipped at
+    +-2 with zero biases, LayerNorms ones and zeros, CLS zeros, the patch
+    conv torch-default U(+-1/sqrt(fan_in))."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in model.state_dict().items():
+        shape, parts = tuple(p.shape), name.split(".")
+        if name.startswith("patch_embed."):
+            bound = 1 / math.sqrt(3 * model.cfg.patch_size ** 2)
+            a = rng.uniform(-bound, bound, shape)
+        elif name == "cls_token":
+            a = np.zeros(shape)
+        elif len(parts) > 1 and parts[-2].startswith("norm") or name.startswith("norm."):
+            a = np.ones(shape) if parts[-1] == "weight" else np.zeros(shape)
+        elif parts[-1] == "bias":
+            a = np.zeros(shape)
+        else:                       # block and head linears, pos-embed, dist token
+            a = np.clip(rng.normal(0.0, 0.02, shape), -2.0, 2.0)
+        out[name] = torch.from_numpy(np.asarray(a, np.float32))
+    return out

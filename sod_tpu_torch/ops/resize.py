@@ -38,6 +38,27 @@ def interpolate_bicubic(x: torch.Tensor, out_h: int,
     return _interpolate(x, out_h, out_w, "bicubic")
 
 
+def interpolate_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """torch ``F.interpolate(mode='nearest')`` over the trailing two axes, on
+    ``sod_tpu``'s source indices (``_resize_matrix``'s, floor(dst * in / out)
+    in f64; torch's own kernel takes the scale in f32): a gather, so the
+    values are the input's own."""
+    in_h, in_w = x.shape[-2:]
+    rows, cols = (torch.as_tensor(_resize_matrix(i, o, "nearest").argmax(1), device=x.device)
+                  for i, o in ((in_h, out_h), (in_w, out_w)))
+    return x[..., rows[:, None], cols[None, :]]
+
+
+def resize_shorter_edge(size_hw, target: int):
+    """The torchvision ``Resize(int)`` output size (h, w): the shorter edge
+    becomes ``target`` and the longer one is truncated, as the reference
+    (``int(float(w) / h * output_size)``), not rounded."""
+    h, w = size_hw
+    if h <= w:
+        return target, max(1, int(float(w) / h * target))
+    return max(1, int(float(h) / w * target)), target
+
+
 def separable(x: torch.Tensor, wh, wwt) -> torch.Tensor:
     """Wh . (x . Wwt) over the trailing two axes of ``x`` in f32: the W
     axis first, then H (``sod_tpu``'s ``_apply_separable`` order).

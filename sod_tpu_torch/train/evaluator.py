@@ -18,8 +18,7 @@ reduction over the image's true (h, w) rectangle.  Per batch:
 Metrics stay on the device and are fetched once, after the last batch.
 Keys, CSV header and rows and the returned dict (with the reference's
 ``pixel_accuarcy`` spelling) are ``sod_tpu``'s.  Not ported here: meshes
-(ROADMAP item 12) and the visualizer (item 6); ``salient_mask_index`` needs
-mask generation's ``vote_mask`` (item 8).
+(ROADMAP item 12) and the visualizer (item 6).
 """
 from __future__ import annotations
 
@@ -271,3 +270,24 @@ class Evaluator:
             "mae_ub": meters["mae_ub"].avg,
             "s_measure_ub": meters["s_measure_ub"].avg,
         }
+
+
+def salient_mask_index(pred_masks, h=None, w=None) -> int:
+    """GT-free mask selection by IoU voting among the filtered query masks
+    (ref evaluator pyc ``_get_salient_mask``; the live evaluator selects by
+    objectness instead).
+
+    :param pred_masks: [Q, H, W] sigmoid masks (numpy or a tensor).
+    :param h, w: the image's true size inside a canvas.
+    :return: index of the query agreeing most with the others.
+    """
+    from sod_tpu_torch.data.mask_generator import vote_mask
+    from sod_tpu_torch.utils.misc import filter_masks
+
+    binary = (np.asarray(pred_masks) > 0.5).astype(np.uint8)
+    if h is not None:
+        binary = binary[:, :h, :w]
+    filtered, mapping = filter_masks(binary, remove_long_masks=True,
+                                     remove_small_large_masks=False)
+    winner = vote_mask(filtered)
+    return mapping.get(winner, winner)

@@ -115,3 +115,25 @@ def test_s8_form_bound_and_phase_14_products():
     assert cs.K8_MAX_LAUNCHES == 6
     assert cs.S8["source"] == "sod_tpu_torch/csrc/vit_block.cuh"
     assert cs.S8["replaces"].startswith("sod_tpu/ops/fused_block_int8.py:")
+
+
+def test_maskgen_phase_is_run_and_fails_without_a_card(tmp_path, monkeypatch):
+    """Phase 16 (pseudo-mask generation at full width) is part of ``main``,
+    writes its synthetic images, and off the card fails instead of
+    generating on the CPU."""
+    import inspect
+
+    import chip_smoke as cs
+
+    assert "maskgen_check()" in inspect.getsource(cs.main)
+    paths = cs.write_maskgen_images(str(tmp_path), 3)
+    from PIL import Image
+
+    sizes = [Image.open(p).size for p in paths]
+    assert len(paths) == 3 and all(150 <= s <= 400 for wh in sizes for s in wh)
+    assert cs.MASKGEN_IMAGES == 32 and cs.MASKGEN_LABEL_AGREEMENT == 0.98
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        cs.maskgen_check()

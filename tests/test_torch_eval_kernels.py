@@ -93,6 +93,57 @@ def test_sweep_wrapper_runs_plain_version_on_cpu():
         fsweep.fmax_tp_cnt(masks, gt[:, :-1], rowv, colv)
 
 
+@pytest.mark.parametrize("w", [21, 37])
+def test_sweep_wrapper_takes_bool_or_uint8_at_any_width(w):
+    """rowv / colv as bool or uint8 (the kernel reads either byte as it is)
+    and a width that is not a multiple of 4 (the kernel's scalar path): the
+    wrapper's plain version equals the interpret-mode Pallas kernel."""
+    masks, gt, rowv, colv = _sweep_case(3, w=w)
+    ref = jax_fsweep._tp_cnt_pallas(*(jnp.asarray(a) for a in (masks, gt, rowv, colv)), 255,
+                                    interpret=True)
+    for dt in (torch.bool, torch.uint8):
+        got = fsweep.fmax_tp_cnt(_t(masks), _t(gt), _t(rowv).to(dt), _t(colv).to(dt))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_sweep_band_plan_and_kernel_layout():
+    """The kernel's band plan (host arithmetic): the eval shape's 16 bands of
+    25 rows, 256 blocks, one wave of two per SM; every plan within 256 rows
+    and the 16-bit count of a histogram copy (two warps).  The layout the
+    kernel reads is checked before a launch."""
+    assert fsweep.band_rows(16, 400, 400) == 25 and fsweep.band_rows(1, 224, 224) == 16
+    for b, h, w in ((16, 400, 400), (4, 400, 400), (1, 224, 224), (2, 33, 7), (1, 3000, 3000),
+                    (3, 5000, 20000), (300, 64, 64)):
+        rows = fsweep.band_rows(b, h, w)
+        bands = -(-h // rows)
+        assert 1 <= rows <= 256 and rows * (w + 3) <= 8 * 65000
+        if w < 8000 and h < 8000:
+            assert b * bands <= 2 * 132 or bands == max(1, -(-h // 256)), (b, h, w)
+    masks, gt, rowv, colv = (_t(a) for a in _sweep_case(4))
+    fsweep._check_layout(masks, gt, rowv, colv.to(torch.uint8))
+    for bad in ((masks.double(), gt, rowv, colv), (masks, gt, rowv.int(), colv),
+                (masks.transpose(2, 3), gt, rowv, colv),
+                (torch.cat([masks] * 3, 1), gt, rowv, colv)):
+        with pytest.raises(ValueError):
+            fsweep._check_layout(*bad)
+
+
+def test_fsweep_ab_variants_cut_the_current_source():
+    """``tools/fsweep_ab.py`` cuts parts out of a copy of ``csrc/fsweep.cu``
+    by text: each cut still finds its text, and each variant differs."""
+    import os
+
+    from sod_tpu_torch.ops import _build
+    from sod_tpu_torch.tools import fsweep_ab
+
+    with open(os.path.join(_build.CSRC_DIR, "fsweep.cu")) as f:
+        src = f.read()
+    v = fsweep_ab._variant_sources(src)
+    assert v["whole"] == src and len(set(v.values())) == 6
+    assert "atomicAdd(&wh[" not in v["loads"] and "if (!last) return;" not in v["no_finish"]
+
+
 # --------------------------------------------------------------- K7
 
 def _ub_case(seed, up, b=3, q=5, h0=9, w0=7):

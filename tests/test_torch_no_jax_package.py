@@ -48,6 +48,10 @@ def test_every_port_module_imports_without_jax_or_sod_tpu():
     mods = _port_modules() + ["chip_smoke"]
     assert len(mods) > 50 and "sod_tpu_torch.serving.app" in mods
     assert {"sod_tpu_torch.ops.fused_block_int8", "sod_tpu_torch.cli.predict"} <= set(mods)
+    assert {"sod_tpu_torch.utils.jax_prng", "sod_tpu_torch.data.clusterings",
+            "sod_tpu_torch.models.resnet", "sod_tpu_torch.models.deit",
+            "sod_tpu_torch.models.factory", "sod_tpu_torch.data.custom",
+            "sod_tpu_torch.data.mask_generator", "sod_tpu_torch.cli.generate_masks"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
