@@ -129,6 +129,29 @@ Run right after phase 5, beside the bf16 service of phase 4:
    sod_tpu_torch.cli.predict``'s ``main`` with ``--quantize int8`` over five
    PNGs (two with one stem) in batches of 4, its files checked.
 
+Then, still beside the bf16 service:
+
+17. refinement: ``/predict?refine=1`` through the web app with the service
+   on 320x240, 1024x768 and 4000x3000 JPEG photos: 200, ``mask``,
+   ``refined_mask`` and ``binary_mask`` at the upload's size, 12 K1
+   launches a request; on each request's mask the refinement's pieces
+   timed one by one (host grid, the device solve between CUDA events, the
+   host post-step, PNG encode) and the card's solve held against the same
+   solve on the CPU on one grid (``REFINE_SOFT_TOL``; the binary masks equal
+   off that band); ``python -m sod_tpu_torch.cli.refine`` and ``cli.predict
+   --refine`` once each on the card;
+18. serving pool: ``python -m sod_tpu_torch.serving.app --workers 2 --device
+   cuda`` as a subprocess on a file database; both worker pids answer
+   ``/test_connection``; signup, then six ``/predict`` (two with
+   ``refine=1``, solved on the workers' CPU) whose masks and objectness
+   equal the in-process service's; the broker holds the card (its
+   ``/dev/nvidia*`` files, and nvidia-smi's compute apps where they list
+   this pid namespace) and no worker does; SIGTERM frees the port and ends
+   every worker; the requests' ms;
+19. ``python -m sod_tpu_torch.cli.smoke --device cuda`` passes, and
+   ``cli.export`` of a checkpoint of the Trainer's format gives the
+   reference's file, which a new service loads to the same masks.
+
 Run after phase 13:
 
 16. pseudo-mask generation at the live config's full width: ``MaskGenerator``
@@ -889,6 +912,24 @@ class Client:
             return status["code"], raw
 
 
+def _signed_up_client(svc, cfg, tmp):
+    """A client of the port's web app serving ``svc``, signed up and
+    verified (logged in)."""
+    from sod_tpu_torch.serving.app import create_app
+    from sod_tpu_torch.serving.db import Database
+
+    app = create_app(cfg=cfg, db=Database(":memory:"), load_model=False,
+                     upload_dir=tmp, secret_key="smoke")
+    app.inference = svc
+    c = Client(app)
+    st, r = c.request("POST", "/user_signup", json_body={
+        "name": "smoke", "email": "smoke@example.com", "password": "pw", "phone": ""})
+    if st != 200:
+        raise AssertionError(f"/user_signup answered {st}: {r}")
+    c.request("GET", r["verify_url"])
+    return c
+
+
 def requests_phase(svc, cfg):
     predict_requests(svc, cfg, "K1")
     phase(5, "3 /predict requests answered through the port's service")
@@ -901,19 +942,8 @@ def predict_requests(svc, cfg, kernel: str):
 
     from PIL import Image
 
-    from sod_tpu_torch.serving.app import create_app
-    from sod_tpu_torch.serving.db import Database
-
     with tempfile.TemporaryDirectory() as tmp:
-        app = create_app(cfg=cfg, db=Database(":memory:"), load_model=False,
-                         upload_dir=tmp, secret_key="smoke")
-        app.inference = svc
-        c = Client(app)
-        st, r = c.request("POST", "/user_signup", json_body={
-            "name": "smoke", "email": "smoke@example.com", "password": "pw",
-            "phone": ""})
-        assert st == 200, (st, r)
-        c.request("GET", r["verify_url"])
+        c = _signed_up_client(svc, cfg, tmp)
         rng = np.random.default_rng(3)
         before = launch_counts()[kernel]
         for h, w in ((240, 320), (224, 224), (150, 380)):
@@ -2942,6 +2972,373 @@ def int8_serving_check(svc16, cfg16):
     return depth * n_forwards
 
 
+# --------------------------------------------------- refinement (phase 17)
+REFINE_SIZES = ((320, 240), (1024, 768), (4000, 3000))   # (w, h); the last a phone photo
+# the card's solve against the same solve on the CPU on one grid: the soft
+# mask lies in [0, 1]; the splat's atomics and the dot products sum in
+# another order than the CPU's, 25 CG iterations carry that f32 noise
+# (H100 run: max_abs 3.3e-6 at 320x240, 1.6e-5 at 1024x768, 1.5e-5 at
+# 4000x3000)
+REFINE_SOFT_TOL = 1e-4
+
+
+def refine_image(rng, w: int, h: int) -> np.ndarray:
+    """A synthetic photo: a bright ellipse on a textured darker ground."""
+    yy, xx = np.ogrid[:h, :w]
+    img = rng.integers(0, 16, (h, w, 3), dtype=np.uint8)
+    img += (40 + 25 * np.sin(xx / 7.0) * np.cos(yy / 5.0)).astype(np.uint8)[..., None]
+    inside = ((yy - 0.5 * h) / (0.3 * h)) ** 2 + ((xx - 0.45 * w) / (0.25 * w)) ** 2 <= 1
+    img[inside] += np.array([150, 120, 90], np.uint8)
+    return img
+
+
+def _jpeg(img: np.ndarray):
+    """A photo as a phone uploads it: JPEG bytes, and the pixels they decode
+    to (what the service sees)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    data = buf.getvalue()
+    return data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _decode_png(b64: str) -> np.ndarray:
+    import base64
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def refine_check(svc, cfg) -> dict:
+    """``/predict?refine=1`` through the port's app with the K1 service, at
+    each size of ``REFINE_SIZES``; then, on the mask each request returned,
+    the refinement's pieces one by one (host grid, device solve, host
+    post-step, PNG encode), the card's solve against the CPU's; then
+    ``cli/refine`` and ``cli/predict --refine`` once each."""
+    import torch
+    from PIL import Image
+
+    from sod_tpu_torch.cli import predict as predict_cli
+    from sod_tpu_torch.cli import refine as refine_cli
+    from sod_tpu_torch.ops import fused_block as fb
+    from sod_tpu_torch.postprocess import bilateral_solver as bs
+    from sod_tpu_torch.serving.inference import _b64_png
+
+    rng = np.random.default_rng(17)
+    depth = svc.mcfg.vit.depth
+    split, worst = {}, 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        c = _signed_up_client(svc, cfg, tmp)
+        for w, h in REFINE_SIZES:
+            data, img = _jpeg(refine_image(rng, w, h))
+            before = fb.launches
+            t0 = time.perf_counter()
+            st, r = c.request("POST", "/predict?refine=1", files={"image": ("photo.jpg", data)})
+            req_ms = (time.perf_counter() - t0) * 1e3
+            if st != 200 or not r.get("success"):
+                raise AssertionError(f"/predict?refine=1 answered {st}: {str(r)[:300]}")
+            if fb.launches - before != depth:
+                raise AssertionError(f"/predict?refine=1 launched K1 "
+                                     f"{fb.launches - before} times, not {depth}")
+            got = {k: _decode_png(r[k]) for k in ("mask", "refined_mask", "binary_mask")}
+            for k, a in got.items():
+                if a.shape != (h, w):
+                    raise AssertionError(f"{k} {a.shape} for a {w}x{h} upload")
+            if not set(np.unique(got["binary_mask"])) <= {0, 255}:
+                raise AssertionError("binary_mask is not binary")
+
+            # the pieces, on the mask this request returned
+            mask = got["mask"].astype(np.float32) / 255.0
+            t0 = time.perf_counter()
+            t, conf, idx, nbrs, nv = bs.solver_inputs(img, mask)
+            grid_ms = (time.perf_counter() - t0) * 1e3
+            on_card = [torch.as_tensor(a, device="cuda") for a in (t, conf, idx, nbrs)]
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            soft_d = bs._solve_device(*on_card, nvertices=nv, device="cuda")
+            e1.record()
+            torch.cuda.synchronize()
+            solve_ms = e0.elapsed_time(e1)
+            soft_d = soft_d[:h * w].cpu().numpy().reshape(h, w)
+            soft_c = bs._solve_device(t, conf, idx, nbrs, nvertices=nv,
+                                      device="cpu")[:h * w].numpy().reshape(h, w)
+            err = float(np.abs(soft_d - soft_c).max())
+            worst = max(worst, err)
+            t0 = time.perf_counter()
+            binary = bs.fill_holes_and_select(soft_d > 0.5)
+            post_ms = (time.perf_counter() - t0) * 1e3
+            binary_c = bs.fill_holes_and_select(soft_c > 0.5)
+            off_band = np.abs(soft_c - 0.5) > REFINE_SOFT_TOL
+            n_diff = int((binary != binary_c)[off_band].sum())
+            soft_u8 = (np.clip(soft_d, 0, 1) * 255).astype(np.uint8)
+            t0 = time.perf_counter()
+            _b64_png(Image.fromarray(soft_u8))
+            _b64_png(Image.fromarray(binary.astype(np.uint8) * 255))
+            png_ms = (time.perf_counter() - t0) * 1e3
+            served = int(np.abs(got["refined_mask"].astype(int) - soft_u8.astype(int)).max())
+            print(f"  /predict?refine=1 {w}x{h}: 200 in {req_ms:.1f} ms, K1 {depth} launches; "
+                  f"{nv} vertices (padded), {t.size} pixels (padded); host grid "
+                  f"{grid_ms:.1f} ms, device solve {solve_ms:.3f} ms (events), "
+                  f"fill_holes_and_select {post_ms:.1f} ms, PNG encode {png_ms:.1f} ms; "
+                  f"card vs CPU soft max_abs {err:.3g}, binary differs off the "
+                  f"{REFINE_SOFT_TOL} band at {n_diff} pixels; served refined mask vs "
+                  f"this solve {served} levels", flush=True)
+            if not err <= REFINE_SOFT_TOL or n_diff or served > 1:
+                raise AssertionError(f"refinement at {w}x{h}: card vs CPU {err:.3g} (bound "
+                                     f"{REFINE_SOFT_TOL}), {n_diff} binary pixels, served "
+                                     f"{served} levels")
+            split[f"{w}x{h}"] = dict(request_ms=req_ms, grid_ms=grid_ms, solve_ms=solve_ms,
+                                     post_ms=post_ms, png_ms=png_ms, max_abs_err=err)
+
+        # cli/refine on the first size's image and mask
+        w, h = REFINE_SIZES[0]
+        data, img = _jpeg(refine_image(np.random.default_rng(18), w, h))
+        Image.fromarray(img).save(os.path.join(tmp, "photo.png"))
+        _, mask = c.request("POST", "/predict", files={"image": ("p.jpg", data)})
+        Image.fromarray(_decode_png(mask["mask"])).save(os.path.join(tmp, "mask.png"))
+        soft_p, bin_p = os.path.join(tmp, "soft.png"), os.path.join(tmp, "binary.png")
+        refine_cli.main(["--image", os.path.join(tmp, "photo.png"), "--mask",
+                         os.path.join(tmp, "mask.png"), "--out-soft", soft_p,
+                         "--out-binary", bin_p, "--device", "cuda"])
+        for p in (soft_p, bin_p):
+            if Image.open(p).size != (w, h):
+                raise AssertionError(f"cli.refine wrote {Image.open(p).size} for {w}x{h}")
+        # cli/predict --refine over two images in one batch
+        for i, (ww, hh) in enumerate(((320, 240), (256, 300))):
+            os.makedirs(os.path.join(tmp, "in"), exist_ok=True)
+            Image.fromarray(refine_image(rng, ww, hh)).save(os.path.join(tmp, "in", f"r{i}.png"))
+        out = os.path.join(tmp, "out")
+        before = fb.launches
+        predict_cli.main(["--p_images", os.path.join(tmp, "in", "*.png"), "--out", out,
+                          "--config", CONFIG, "--batch_size", "2", "--refine",
+                          "--device", "cuda"])
+        names = sorted(os.listdir(out))
+        if names != ["r0_mask.png", "r0_refined.png", "r1_mask.png", "r1_refined.png"]:
+            raise AssertionError(f"cli.predict --refine wrote {names}")
+        if fb.launches - before != depth:                 # one forward of a batch of 2
+            raise AssertionError(f"cli.predict --refine launched K1 "
+                                 f"{fb.launches - before} times")
+        for i, (ww, hh) in enumerate(((320, 240), (256, 300))):
+            if Image.open(os.path.join(out, f"r{i}_refined.png")).size != (ww, hh):
+                raise AssertionError("cli.predict --refine: a refined mask of another size")
+        print(f"  cli.refine wrote {w}x{h} soft and binary PNGs; cli.predict --refine wrote "
+              f"{names} with {fb.launches - before} K1 launches", flush=True)
+    phase(17, f"refinement: /predict?refine=1 at {', '.join(split)} answered with "
+              f"refined_mask and binary_mask at the upload's size, {depth} K1 launches "
+              f"each; the card's solve within {worst:.3g} of the CPU's (bound "
+              f"{REFINE_SOFT_TOL}); cli.refine and cli.predict --refine")
+    return split
+
+
+# --------------------------------------------------- serving pool (phase 18)
+POOL_WORKERS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _uses_card(pid: int) -> bool:
+    """Whether process ``pid`` holds the card: a CUDA context keeps the
+    ``/dev/nvidia*`` device files open; importing torch opens none."""
+    fds = f"/proc/{pid}/fd"
+    for fd in os.listdir(fds):
+        with contextlib.suppress(OSError):
+            if os.readlink(os.path.join(fds, fd)).startswith("/dev/nvidia"):
+                return True
+    return False
+
+
+def _exited(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except OSError:
+        return True
+
+
+def pool_check(svc, cfg) -> dict:
+    """``python -m sod_tpu_torch.serving.app --workers 2 --device cuda`` as
+    a subprocess on a file database: both workers answer, a user signs up,
+    six ``/predict`` (two with ``refine=1``) come back with masks
+    byte-equal to the in-process service's (``svc``, the same seeded
+    weights on the card); the broker holds the card and no worker does;
+    SIGTERM frees the port and ends every worker."""
+    import signal
+    import socket
+    import urllib.request
+
+    rng = np.random.default_rng(19)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        log_path = os.path.join(tmp, "pool.log")
+        env = dict(os.environ, SOD_DB_PATH=os.path.join(tmp, "pool.db"))
+        env.pop("SOD_DB_URL", None)
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "sod_tpu_torch.serving.app", "--workers",
+                 str(POOL_WORKERS), "--port", str(port), "--device", "cuda",
+                 "--config", CONFIG],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+        opener = urllib.request.build_opener(urllib.request.HTTPCookieProcessor())
+
+        def req(path, data=None, headers=None, timeout=120):
+            r = urllib.request.Request(base + path, data=data, headers=headers or {})
+            with opener.open(r, timeout=timeout) as resp:
+                return json.loads(resp.read())
+
+        def multipart(data):
+            bd = "smokepool"
+            body = (f"--{bd}\r\nContent-Disposition: form-data; name=\"image\"; "
+                    f"filename=\"p.jpg\"\r\nContent-Type: image/jpeg\r\n\r\n").encode() + \
+                data + f"\r\n--{bd}--\r\n".encode()
+            return body, {"Content-Type": f"multipart/form-data; boundary={bd}"}
+
+        try:
+            t0 = time.perf_counter()
+            workers, broker_pid = set(), None
+            while len(workers) < POOL_WORKERS:
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"the pool did not come up: exit {proc.poll()}")
+                try:
+                    info = req("/test_connection", timeout=5)
+                    workers.add(info["pid"])
+                    broker_pid = info["model"]["broker_pid"]
+                except (OSError, ValueError, KeyError):
+                    time.sleep(0.5)
+            boot_s = time.perf_counter() - t0
+            if broker_pid != proc.pid or proc.pid in workers:
+                raise AssertionError(f"broker pid {broker_pid}, workers {workers}, "
+                                     f"server {proc.pid}")
+            r = req("/user_signup", data=json.dumps({
+                "name": "pool", "email": "pool@example.com", "password": "pw",
+                "phone": ""}).encode(), headers={"Content-Type": "application/json"})
+            if not req(r["verify_url"]).get("success"):
+                raise AssertionError("the verify link failed on the pool")
+            ms, refine_levels = [], 0
+            for i in range(6):
+                refine = i in (1, 4)
+                w, h = ((320, 240), (480, 360), (224, 224))[i % 3]
+                data, _ = _jpeg(refine_image(rng, w, h))
+                body, headers = multipart(data)
+                t1 = time.perf_counter()
+                r = req("/predict" + ("?refine=1" if refine else ""), data=body,
+                        headers=headers)
+                ms.append((time.perf_counter() - t1) * 1e3)
+                want = svc.predict(data, refine=refine)
+                if not r.get("success") or r["mask"] != want["mask"]:
+                    raise AssertionError(f"pool /predict {i}: mask differs from the "
+                                         f"in-process service's")
+                if r["objectness_scores"] != want["objectness_scores"]:
+                    raise AssertionError(f"pool /predict {i}: objectness differs")
+                if refine:
+                    for k in ("refined_mask", "binary_mask"):
+                        if _decode_png(r[k]).shape != (h, w):
+                            raise AssertionError(f"pool {k} of another size")
+                    # the worker solved on the CPU, the in-process service on the card
+                    refine_levels = max(refine_levels, int(np.abs(
+                        _decode_png(r["refined_mask"]).astype(int)
+                        - _decode_png(want["refined_mask"]).astype(int)).max()))
+            if refine_levels > 1:
+                raise AssertionError(f"pool refined mask {refine_levels} levels from the "
+                                     f"card's")
+            smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=60, check=True).stdout.split()
+            listed = {int(p) for p in smi if p.strip().isdigit()}
+            holders = {pid: _uses_card(pid) for pid in [proc.pid, *sorted(workers)]}
+            print(f"  pool up in {boot_s:.1f} s: broker {proc.pid}, workers "
+                  f"{sorted(workers)}; nvidia-smi compute apps {sorted(listed)}; "
+                  f"/dev/nvidia* open: {holders}", flush=True)
+            if not holders[proc.pid] or any(holders[p] for p in workers):
+                raise AssertionError(f"the card is held by {holders}: the broker alone "
+                                     f"must hold it")
+            if proc.pid in listed:
+                if listed & workers:
+                    raise AssertionError(f"nvidia-smi lists workers {listed & workers}")
+            else:
+                print("  (nvidia-smi lists the pids of another pid namespace: the "
+                      "/dev/nvidia* check above decides)", flush=True)
+            print(f"  pool /predict ms (6 requests, refine at 2 and 5): "
+                  + ", ".join(f"{m:.1f}" for m in ms) + f"; refined masks within "
+                  f"{refine_levels} level of the card's", flush=True)
+        except BaseException:
+            with open(log_path) as f:
+                print("  pool log:\n" + f.read()[-4000:], flush=True)
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait(timeout=30)
+        deadline = time.perf_counter() + 30
+        while not all(_exited(p) for p in workers) and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("0.0.0.0", port))               # raises while anything listens
+            s.listen(1)
+        alive = [p for p in workers if not _exited(p)]
+        if alive or rc != 0:
+            raise AssertionError(f"after SIGTERM: server exit {rc}, workers alive {alive}")
+    phase(18, f"serving pool: {POOL_WORKERS} workers behind the broker answered signup and "
+              f"6 /predict (2 refined) with the in-process masks, median "
+              f"{float(np.median(ms)):.1f} ms; the broker alone holds the card; SIGTERM "
+              f"freed port {port} and ended every worker")
+    return {"boot_s": boot_s, "predict_ms": ms}
+
+
+# --------------------------------------------- smoke and export CLIs (phase 19)
+def tools_check(svc, cfg) -> None:
+    """``cli.smoke --device cuda`` passes; ``cli.export`` of a checkpoint of
+    the Trainer's format holding the service's weights gives the reference's
+    file, which a new service loads to the same masks."""
+    import torch
+
+    from sod_tpu_torch.cli import export, smoke
+    from sod_tpu_torch.models.maskformer import MaskFormer, random_state_dict
+    from sod_tpu_torch.serving.inference import SelfMaskInference
+    from sod_tpu_torch.train.checkpoints import save_checkpoint
+
+    rc = smoke.main(["--config", CONFIG, "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"cli.smoke --device cuda exited {rc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        model = MaskFormer(svc.mcfg)
+        model.load_state_dict(random_state_dict(model, cfg.seed))
+        ckpt, out = os.path.join(tmp, "latest_model.pt"), os.path.join(tmp, "export.pt")
+        save_checkpoint(ckpt, model, epoch=2, n_iters=20)
+        export.main(["--ckpt", ckpt, "--out", out])
+        payload = torch.load(out, map_location="cpu", weights_only=True)
+        sd = model.state_dict()
+        if (payload.get("n_epochs"), payload.get("n_iters")) != (2, 20) or \
+                set(payload["model"]) != set(sd) or \
+                not all(torch.equal(payload["model"][k], v) for k, v in sd.items()):
+            raise AssertionError("cli.export did not round-trip the checkpoint")
+        svc2 = SelfMaskInference(cfg=cfg.replace(micro_batch=False), device="cuda",
+                                 model_path=out, warmup=False)
+        img = refine_image(np.random.default_rng(20), 224, 224)
+        (m1, o1), (m2, o2) = svc.model_step(img), svc2.model_step(img)
+        del svc2
+        if not (np.array_equal(m1, m2) and np.array_equal(o1, o2)):
+            raise AssertionError("the exported weights serve other masks")
+    phase(19, "cli.smoke --device cuda passed; cli.export round-tripped a checkpoint "
+              f"({len(sd)} tensors, epochs and iterations kept) and a service on it "
+              "answers the in-process masks")
+
+
 def main():
     card_check()
     import torch
@@ -2956,6 +3353,9 @@ def main():
         # beside the bf16 service while it is up
         k8_worst, k8_times, k8_bound, k8_forms = int8_kernel_check()
         k8_launches = int8_serving_check(svc, cfg)
+        refine_check(svc, cfg)
+        pool_check(svc, cfg)
+        tools_check(svc, cfg)
     finally:
         svc.close()
     k2_worst, k2_times = k2_check()

@@ -7,8 +7,9 @@
 
 yaml -> Config, seeds, the model (weights from a ``.pt`` state dict in the
 reference layout or a checkpoint of the port's Trainer, else seeded random
-weights), one ``Evaluator`` run on one device; prints the metric dict and
-writes the per-image CSV under ``{dir_root}/eval/{experiment}``.  The mesh
+weights; an orbax checkpoint directory is refused, as in the service), one
+``Evaluator`` run on one device; prints the metric dict and writes the
+per-image CSV under ``{dir_root}/eval/{experiment}``.  The mesh
 flags of ``sod_tpu``'s CLI are accepted and refused: the parallel layouts
 are ROADMAP item 12.
 """
@@ -64,13 +65,14 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from sod_tpu_torch.models.convert import load_torch_state_dict
+    from sod_tpu_torch.models.convert import load_torch_state_dict, require_torch_checkpoint
     from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
     from sod_tpu_torch.train.evaluator import Evaluator
 
     mcfg = config_from(cfg)
     model = MaskFormer(mcfg)
     if args.p_state_dict:
+        require_torch_checkpoint(args.p_state_dict)
         model.load_state_dict(load_torch_state_dict(args.p_state_dict))
         print(f"Pre-trained weights are loaded from {args.p_state_dict}")
     else:

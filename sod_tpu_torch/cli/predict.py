@@ -3,14 +3,15 @@ run the saliency model over a folder of images and write mask PNGs.
 
     python -m sod_tpu_torch.cli.predict --p_images 'photos/*.jpg' \\
         --p_state_dict selfmask_nq20.pt --out masks/ [--heatmap] \\
-        [--quantize int8] [--batch_size 64] [--device cuda]
+        [--quantize int8] [--batch_size 64] [--refine] [--device cuda]
 
 The serving stack's exact model path (the same fused forward, objectness
 argmax selection and LANCZOS restore to the original size), in static
-batches of ``--batch_size`` padded with the last image.  ``--refine`` is
-refused: the bilateral solver is ROADMAP item 10.  Weights come from a torch
-checkpoint in the reference's layout, else seeded random weights (smoke
-runs only); orbax checkpoint directories are refused as in the service.
+batches of ``--batch_size`` padded with the last image.  ``--refine`` also
+writes ``<stem>_refined.png``, the bilateral solver's soft mask, solved on
+``--device``.  Weights come from a torch checkpoint in the reference's
+layout, else seeded random weights (smoke runs only); orbax checkpoint
+directories are refused as in the service.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also write <stem>_heatmap.png (jet-LUT blend, "
                         "identical to the serving /predict heatmap)")
     p.add_argument("--refine", action="store_true",
-                   help="refused: the bilateral solver is not ported yet "
-                        "(ROADMAP item 10)")
+                   help="also write <stem>_refined.png (bilateral-solver "
+                        "refinement of the mask)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="the one device to predict on")
@@ -49,10 +50,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    if args.refine:
-        raise NotImplementedError(
-            "--refine needs the bilateral solver, not ported to "
-            "sod_tpu_torch yet (ROADMAP item 10)")
     set_seeds(args.seed)
 
     paths = []
@@ -128,6 +125,15 @@ def main(argv=None) -> None:
                            ).astype(np.uint8)
                 Image.fromarray(blended).save(
                     os.path.join(args.out, f"{stem}_heatmap.png"))
+            if args.refine:
+                from sod_tpu_torch.postprocess import bilateral_solver_output
+
+                soft, _ = bilateral_solver_output(
+                    img, np.asarray(mask_full, np.float32) / 255.0,
+                    device=args.device)
+                Image.fromarray((np.clip(soft, 0, 1) * 255).astype(
+                    np.uint8)).save(
+                    os.path.join(args.out, f"{stem}_refined.png"))
             n_done += 1
     dt = time.perf_counter() - t0
     print(f"predicted {n_done} images -> {args.out} "

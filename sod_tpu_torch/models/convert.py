@@ -1,4 +1,5 @@
-"""Weights into the port: ``sod_tpu`` parameter trees and torch checkpoints.
+"""Weights into the port (``sod_tpu`` parameter trees and torch
+checkpoints) and out of it (``save_torch_checkpoint``, the reference's file).
 
 The port's modules use the reference's ``selfmask_nq20.pt`` key layout, so
 a real checkpoint loads with ``load_state_dict`` as it is, and a
@@ -8,7 +9,7 @@ import.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -174,16 +175,47 @@ def blocks_q_from_jax(blocks_q: dict) -> List[Dict[str, Dict[str, torch.Tensor]]
     return records
 
 
+def require_torch_checkpoint(path: str) -> None:
+    """The port's one rule for a weights path given by a user: a torch
+    checkpoint file (``.pt``/``.pth``/``.tar``), which ``sod_tpu`` loads with
+    ``torch.load`` too; anything else is what ``sod_tpu`` restores with orbax,
+    which is not ported."""
+    if not path.endswith((".pt", ".pth", ".tar")):
+        raise NotImplementedError(
+            f"{path!r}: the port loads torch checkpoints only; orbax "
+            "checkpoint directories are not ported (ROADMAP item 13)")
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Tensors of a torch checkpoint on the CPU; unwraps the reference's
     ``{'model': state_dict}`` (and ``state_dict`` / ``teacher``) nesting.
     Loads with ``weights_only=True``: tensors and plain containers only."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return state_dict_of(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def state_dict_of(obj) -> Dict[str, torch.Tensor]:
+    """The tensors of a loaded checkpoint, unwrapped as
+    ``load_torch_state_dict`` unwraps them."""
     for key in ("model", "state_dict", "teacher"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
             break
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def save_torch_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
+                          extra: Optional[Dict] = None) -> str:
+    """Write ``{'model': state_dict}`` exactly as the reference's consumers
+    expect (``app.py:185-187`` pops ``['model']``), ``extra`` beside it, as
+    ``sod_tpu``'s ``save_torch_checkpoint`` does.  fp32 tensors on the CPU:
+    bf16 weights are upcast, matching torch's default dtype."""
+    sd = {k: (v.detach().cpu().float() if v.is_floating_point() else v.detach().cpu())
+          for k, v in state_dict.items()}
+    obj = {"model": sd}
+    if extra:
+        obj.update(extra)
+    torch.save(obj, path)
+    return path
 
 
 # ---------------------------------------------------------------------------

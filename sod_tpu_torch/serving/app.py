@@ -10,8 +10,9 @@ per handler).
 Twin of ``sod_tpu/serving/app.py``: ``create_app`` and its routes are that
 file's, with the model service built from the port's
 ``SelfMaskInference`` on ``device``.  ``main`` is the port's own
-(``python -m sod_tpu_torch.serving.app --port 5000 [--no-model]``); the
-worker pool of the original's ``main`` is not ported.
+(``python -m sod_tpu_torch.serving.app --port 5000 [--no-model]
+[--workers N]``): ``--workers`` > 1 boots the pool of
+``sod_tpu_torch/serving/pool.py``, as the original's ``main`` does.
 """
 from __future__ import annotations
 
@@ -760,6 +761,12 @@ def main(argv=None) -> None:
                    help="serve the web app without building the model "
                         "service (/predict then answers that no model is "
                         "loaded)")
+    p.add_argument("--workers", type=int, default=1,
+                   help="N>1: spawn N HTTP worker processes sharing the "
+                        "port (SO_REUSEPORT); this process keeps the card "
+                        "and serves them over a unix-socket broker, the "
+                        "workers see no card (they refine on the CPU). "
+                        "Requires a file DB (SOD_DB_PATH).")
     p.add_argument("--allow-default-admin", action="store_true",
                    help="enable the reference's fixed admin credentials "
                         "(dev only; otherwise set SOD_ADMIN_PASSWORD)")
@@ -774,6 +781,14 @@ def main(argv=None) -> None:
     cfg = load_config(args.config) if args.config else Config()
     if args.quantize is not None:
         cfg = cfg.replace(quantize=args.quantize)
+    if args.workers > 1:
+        from sod_tpu_torch.serving.pool import serve_pool
+
+        serve_pool(port=args.port, workers=args.workers, cfg=cfg,
+                   device=args.device, model_path=args.model,
+                   load_model=not args.no_model,
+                   allow_default_admin=args.allow_default_admin)
+        return
     app = create_app(cfg=cfg, load_model=False,
                      allow_default_admin=args.allow_default_admin)
     if not args.no_model:

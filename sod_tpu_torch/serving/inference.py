@@ -5,7 +5,9 @@
 compute dtype, and serves ``/predict``: resize to the model size -> uint8
 upload -> on-device ImageNet normalize -> forward with the fused encoder
 -> the last decoder layer's mask of the query with the highest objectness
--> LANCZOS back to the original size -> jet heatmap -> base64 PNGs.
+-> LANCZOS back to the original size -> jet heatmap -> base64 PNGs; with
+``refine``, the bilateral solver's refined and binary masks too
+(``postprocess/bilateral_solver.py``, its solve on the service's device).
 ``MicroBatcher`` batches concurrent requests into one forward, enabled by
 the ``micro_batch`` setting (``"auto"`` measures both policies at boot).
 ``Config.quantize = "int8"`` quantises the encoder blocks once at load and
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from sod_tpu_torch.data.augment import normalize_device
-from sod_tpu_torch.models.convert import load_torch_state_dict
+from sod_tpu_torch.models.convert import load_torch_state_dict, require_torch_checkpoint
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
 from sod_tpu_torch.ops.fused_block_int8 import quantize_vit_blocks
 
@@ -210,17 +212,19 @@ class PredictPipeline:
     """Host half of ``/predict``: decode -> resize to the model size ->
     ``model_step`` -> LANCZOS back to the original size -> jet heatmap
     blend -> base64 PNGs.  Subclasses provide ``cfg.eval_image_size`` and
-    ``model_step``."""
+    ``model_step``, and ``device`` where the refinement's solve runs."""
 
     def model_step(self, arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """uint8 [S, S, 3] -> (uint8 [S, S] mask, f32 [Q] objectness)."""
         raise NotImplementedError
 
+    # where ``refine`` runs the bilateral solve: the pipeline's own device
+    device = torch.device("cpu")
+
     def predict(self, image, refine: bool = False) -> Dict:
-        if refine:
-            raise NotImplementedError(
-                "refine=True needs the bilateral solver, not ported to "
-                "sod_tpu_torch yet (ROADMAP item 10)")
+        """``refine`` also returns ``refined_mask`` (soft) and
+        ``binary_mask`` PNGs: the bilateral solver on the original image,
+        its solve on ``self.device``."""
         from PIL import Image
 
         from sod_tpu_torch import native
@@ -251,12 +255,23 @@ class PredictPipeline:
         if blended is None:
             blended = ((img_arr.astype(np.uint16) + _JET_LUT[mask_u8]) >> 1
                        ).astype(np.uint8)
-        return {
+        out = {
             "original": _b64_png(img_arr),
             "mask": _b64_png(mask_u8),
             "heatmap": _b64_png(blended),
             "objectness_scores": [float(o) for o in obj],
         }
+        if refine:
+            from sod_tpu_torch.postprocess import bilateral_solver_output
+
+            mask_arr = mask_u8.astype(np.float32) / 255.0
+            soft, binary = bilateral_solver_output(image, mask_arr,
+                                                   device=self.device)
+            out["refined_mask"] = _b64_png(Image.fromarray(
+                (np.clip(soft, 0, 1) * 255).astype(np.uint8)))
+            out["binary_mask"] = _b64_png(Image.fromarray(
+                (binary.astype(np.uint8) * 255)))
+        return out
 
 
 class SelfMaskInference(PredictPipeline):
@@ -320,11 +335,8 @@ class SelfMaskInference(PredictPipeline):
     def _load_state_dict(self, model: MaskFormer, model_path: Optional[str]):
         if model_path is None:
             return random_state_dict(model, self.cfg.seed)
-        if model_path.endswith((".pt", ".pth", ".tar")):
-            return load_torch_state_dict(model_path)
-        raise NotImplementedError(
-            f"{model_path!r}: the port loads torch checkpoints only; orbax "
-            "checkpoint directories are not ported (ROADMAP item 13)")
+        require_torch_checkpoint(model_path)
+        return load_torch_state_dict(model_path)
 
     # ------------------------------------------------------------------
     def prep(self, u8: torch.Tensor) -> torch.Tensor:

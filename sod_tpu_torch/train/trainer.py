@@ -27,7 +27,7 @@ import torch
 
 from sod_tpu_torch.config import Config, define_experim_name
 from sod_tpu_torch.utils.profiling import StepTimer
-from sod_tpu_torch.data.duts import DUTSDataset
+from sod_tpu_torch.data.factory import get_dataset
 from sod_tpu_torch.data.loader import DataLoader, collate_train
 from sod_tpu_torch.metrics.average_meter import AverageMeter
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
@@ -41,18 +41,16 @@ DEFAULT_BENCHMARKS = ["ecssd", "duts", "dut_omron"]
 _PRETTY = {"duts": "DUTS", "ecssd": "ECSSD", "dut_omron": "DUT-OMRON"}
 
 
-def train_dataset(cfg: Config) -> DUTSDataset:
-    """The DUTS-TR train split (``get_dataset(..., "duts", mode="train")``)."""
-    if cfg.dataset_name != "duts":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset_name!r}: the port trains on duts only")
-    ds = DUTSDataset(os.path.join(cfg.dir_dataset, "DUTS"),
-                     img_size=cfg.train_image_size, scale_range=cfg.scale_range,
-                     use_pseudo_masks=cfg.use_pseudo_masks,
-                     pseudo_masks_fp=cfg.pseudo_masks_fp,
-                     use_copy_paste=cfg.use_copy_paste)
-    ds.set_mode("train")
-    return ds
+def train_dataset(cfg: Config):
+    """The train split of ``cfg.dataset_name``, through ``get_dataset`` as
+    ``sod_tpu``'s Trainer builds it, so a name without a train split raises
+    the factory's error."""
+    return get_dataset(cfg.dir_dataset, cfg.dataset_name, mode="train",
+                       train_img_size=cfg.train_image_size,
+                       scale_range=cfg.scale_range,
+                       use_pseudo_masks=cfg.use_pseudo_masks,
+                       pseudo_masks_fp=cfg.pseudo_masks_fp,
+                       use_copy_paste=cfg.use_copy_paste)
 
 
 class Trainer:

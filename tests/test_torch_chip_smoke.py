@@ -137,3 +137,35 @@ def test_maskgen_phase_is_run_and_fails_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises((RuntimeError, AssertionError)):
         cs.maskgen_check()
+
+
+@pytest.mark.parametrize("check,match", [
+    ("refine_check", "launched K1 0 times"),
+    ("pool_check", "did not come up"),
+    ("tools_check", "cli.smoke --device cuda exited 1")])
+def test_refinement_pool_and_tools_phases_are_run_and_fail_without_a_card(check, match,
+                                                                          monkeypatch):
+    """Phases 17-19 (refinement through ``/predict?refine=1``, the two-worker
+    pool, the smoke and export CLIs) are part of ``main``, beside the bf16
+    service; off the card each fails instead of passing on the CPU: the
+    refinement sees no K1 launch (the CPU runs K1's plain version), the
+    pool's server exits without a card, the smoke CLI fails its device
+    phase."""
+    import inspect
+
+    import chip_smoke as cs
+    from sod_tpu_torch.config import Config
+    from sod_tpu_torch.models.maskformer import MaskFormer, MaskFormerConfig, random_state_dict
+    from sod_tpu_torch.models.vit import ViTConfig
+    from sod_tpu_torch.serving import inference
+
+    assert f"{check}(svc, cfg)" in inspect.getsource(cs.main)
+    assert cs.REFINE_SIZES[-1] == (4000, 3000) and cs.POOL_WORKERS == 2
+    tcfg = MaskFormerConfig(n_queries=4, n_decoder_layers=2, vit=ViTConfig(
+        patch_size=8, embed_dim=32, depth=2, n_heads=2, pos_grid=4))
+    monkeypatch.setattr(inference, "config_from", lambda cfg: tcfg)
+    cfg = Config(eval_image_size=32, compute_dtype="float32", micro_batch=False)
+    svc = inference.SelfMaskInference(cfg=cfg, state_dict=random_state_dict(MaskFormer(tcfg), 0),
+                                      device="cpu", warmup=False)
+    with pytest.raises(AssertionError, match=match):
+        getattr(cs, check)(svc, cfg)

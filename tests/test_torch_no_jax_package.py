@@ -52,6 +52,9 @@ def test_every_port_module_imports_without_jax_or_sod_tpu():
             "sod_tpu_torch.models.resnet", "sod_tpu_torch.models.deit",
             "sod_tpu_torch.models.factory", "sod_tpu_torch.data.custom",
             "sod_tpu_torch.data.mask_generator", "sod_tpu_torch.cli.generate_masks"} <= set(mods)
+    assert {"sod_tpu_torch.postprocess", "sod_tpu_torch.postprocess.bilateral_solver",
+            "sod_tpu_torch.serving.pool", "sod_tpu_torch.cli.refine",
+            "sod_tpu_torch.cli.smoke", "sod_tpu_torch.cli.export"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -91,9 +94,13 @@ COPIES = {
     "serving/db.py": 0.99,
     "serving/payments.py": 1, "serving/analytics.py": 1, "serving/schema.sql": 1,
     # differs on purpose: the docstring, create_app's model service (the
-    # port's SelfMaskInference on `device`) and main() (the port's own: no
-    # worker pool, no compile cache)
+    # port's SelfMaskInference on `device`) and main() (the port's own:
+    # `--device`, `--workers` booting the port's pool, no compile cache)
     "serving/app.py": 0.90,
+    # differs on purpose: the docstring, the workers hiding the card
+    # (CUDA_VISIBLE_DEVICES empty, where sod_tpu pins jax to its CPU backend)
+    # and serve_pool's service (the port's SelfMaskInference on `device`)
+    "serving/pool.py": 0.95,
 }
 for _root, _, _names in os.walk(_TEMPLATES):
     for _n in _names:
@@ -117,6 +124,11 @@ def test_copy_equals_its_sod_tpu_source(rel):
         end = next(i for i, ln in enumerate(src) if ln.startswith("def main"))
         routes = [ln for ln in src[:end] if "@app.route" in ln]
         assert len(routes) >= 30 and [ln for ln in dst if "@app.route" in ln] == routes
+    elif rel == "serving/pool.py":
+        heads = [ln for ln in src if ln.startswith(("def ", "class "))]
+        assert [ln for ln in dst if ln.startswith(("def ", "class "))] == [
+            ln.replace("cfg=None,", 'cfg=None, device="cuda",') for ln in heads]
+        assert not [ln for ln in dst if "import jax" in ln]
     elif rel == "serving/db.py":
         assert [ln for ln in difflib.ndiff(src, dst) if ln.startswith("- ")] == [
             '-             self._uri = f"file:sodmem{seq}?mode=memory&cache=shared"']

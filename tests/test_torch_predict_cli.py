@@ -1,9 +1,9 @@
 """The port's offline prediction CLI (``sod_tpu_torch.cli.predict``) on the
 CPU with a tiny model: the masks it writes, the ``_1`` suffix for a stem
 seen before, static batches padded with the last image, ``--heatmap``,
-``--quantize int8``, and what it refuses.  Its masks are the service's own
-(``forward_u8`` + LANCZOS back to the input size), held against ``sod_tpu``
-in ``tests/test_torch_serving.py``.
+``--quantize int8``, ``--refine``, and what it refuses.  Its masks are the
+service's own (``forward_u8`` + LANCZOS back to the input size), held
+against ``sod_tpu`` in ``tests/test_torch_serving.py``.
 """
 import os
 
@@ -101,9 +101,23 @@ def test_a_pattern_that_matches_nothing_exits(images):
 
 
 def test_refine_is_refused(images):
+    """``--refine`` was refused until the bilateral solver was ported
+    (ROADMAP item 10); it now writes ``<stem>_refined.png`` beside each mask:
+    the solver's soft mask of that mask on the image, at the image's size."""
     tmp, base = images
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        predict.main(["--p_images", str(tmp / "a" / "*.png"), "--refine", *base])
+    out = tmp / "refined"
+    predict.main(["--p_images", str(tmp / "a" / "*.png"), "--refine", "--out", str(out),
+                  *base])
+    assert sorted(os.listdir(out)) == ["cat_mask.png", "cat_refined.png",
+                                       "dog_mask.png", "dog_refined.png"]
+    from sod_tpu_torch.postprocess import bilateral_solver_output
+
+    img = Image.open(tmp / "a" / "cat.png").convert("RGB")
+    mask = np.asarray(Image.open(out / "cat_mask.png"), np.float32) / 255.0
+    soft, _ = bilateral_solver_output(img, mask, device="cpu")
+    want = (np.clip(soft, 0, 1) * 255).astype(np.uint8)
+    got = Image.open(out / "cat_refined.png")
+    assert got.size == img.size and np.array_equal(np.asarray(got), want)
 
 
 def test_orbax_directories_are_refused(images):

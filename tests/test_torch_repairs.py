@@ -2,7 +2,9 @@
 ``Trainer.__call__`` (train then evaluate, epoch by epoch) with an injected
 ``evaluator=``; the reference command lines' ``--gpu_id`` / ``--use_gpu``
 flags and the web app's ``--no-model``; ``get_dataset``'s errors for the
-dataset names the reference factory mentions without a class."""
+dataset names the reference factory mentions without a class; the
+evaluate CLI's refusal of an orbax directory (ROADMAP fault F1) and the
+Trainer's dataset built through ``get_dataset`` (fault F2)."""
 import json
 import os
 
@@ -192,3 +194,87 @@ def test_get_dataset_keeps_its_other_errors(tmp_path):
     (tmp_path / "ECSSD" / "images" / "im0.jpg").write_bytes(b"")     # no mask
     with pytest.raises(FileNotFoundError):
         get_dataset(str(tmp_path), "ecssd", "test")
+
+
+# ------------------------------------------- F1: one rule for a weights path
+
+def _evaluate_argv(tmp_path, weights):
+    fp = tmp_path / "cfg.yaml"
+    fp.write_text(yaml.safe_dump({"dir_dataset": str(tmp_path)}))
+    return ["--config", str(fp), "--device", "cpu", "--dir_root", str(tmp_path),
+            "--p_state_dict", str(weights)]
+
+
+def test_evaluate_cli_refuses_an_orbax_directory_as_the_service_does(tmp_path):
+    """A checkpoint directory is refused with the service's item-13
+    ``NotImplementedError`` (it was an ``IsADirectoryError`` from
+    ``torch.load``)."""
+    ckpt = tmp_path / "best_model_duts"
+    ckpt.mkdir()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13") as got:
+        cli_evaluate.main(_evaluate_argv(tmp_path, ckpt))
+    with pytest.raises(NotImplementedError) as want:
+        port_inference.SelfMaskInference(cfg=Config(), device="cpu", model_path=str(ckpt),
+                                          warmup=False)
+    assert str(got.value) == str(want.value)
+
+
+def test_evaluate_cli_still_loads_a_torch_checkpoint(tmp_path, monkeypatch):
+    from sod_tpu_torch.models.maskformer import MaskFormer, random_state_dict
+
+    sd = random_state_dict(MaskFormer(TCFG), 3)
+    import torch
+
+    torch.save({"model": sd}, tmp_path / "w.pt")
+    seen = {}
+
+    class _Evaluator:
+        def __init__(self, model, *a, **kw):
+            seen["model"] = model
+
+        def __call__(self, **kw):
+            return {"iou": 0.0}
+
+    monkeypatch.setattr("sod_tpu_torch.models.maskformer.config_from", lambda cfg: TCFG)
+    monkeypatch.setattr("sod_tpu_torch.train.evaluator.Evaluator", _Evaluator)
+    assert cli_evaluate.main(_evaluate_argv(tmp_path, tmp_path / "w.pt")) == {"iou": 0.0}
+    loaded = seen["model"].state_dict()
+    assert all(torch.equal(loaded[k], v) for k, v in sd.items())
+
+
+# --------------------------------------- F2: the train split via get_dataset
+
+@pytest.mark.parametrize("name,error", [("foo", ValueError), ("cub2011", NotImplementedError),
+                                        ("ecssd", ValueError)])
+def test_trainer_raises_the_factorys_error_for_a_dataset_without_a_train_split(
+        settings, name, error):
+    """As ``sod_tpu``'s Trainer, which calls ``get_dataset(..., mode="train")``:
+    an unknown name and a name without a class give ``sod_tpu``'s error and
+    message; ``ecssd`` the port factory's ``ValueError`` (an ``assert`` in
+    ``sod_tpu``).  The port raised "trains on duts only" for all three."""
+    with pytest.raises(error) as got:
+        Trainer(Config(**dict(settings, dataset_name=name)), device="cpu", mcfg=TCFG)
+    with pytest.raises(error) as want:
+        get_dataset(settings["dir_dataset"], name, mode="train")
+    assert str(got.value) == str(want.value)
+    if name != "ecssd":
+        with pytest.raises(error) as ref:
+            jax_get_dataset(settings["dir_dataset"], name, mode="train")
+        assert str(got.value) == str(ref.value)
+
+
+def test_trainer_builds_the_duts_train_split_as_before(settings):
+    from sod_tpu_torch.data.duts import DUTSDataset
+    from sod_tpu_torch.train.trainer import train_dataset
+
+    cfg = Config(**settings)
+    got = train_dataset(cfg)
+    want = DUTSDataset(os.path.join(cfg.dir_dataset, "DUTS"), img_size=cfg.train_image_size,
+                       scale_range=cfg.scale_range, use_pseudo_masks=cfg.use_pseudo_masks,
+                       pseudo_masks_fp=cfg.pseudo_masks_fp,
+                       use_copy_paste=cfg.use_copy_paste)
+    want.set_mode("train")
+    assert type(got) is DUTSDataset and got.mode == "train" and len(got) == 4
+    for attr in ("p_train_imgs", "p_train_gts", "pseudo_masks", "img_size", "scale_range",
+                 "use_pseudo_masks", "use_copy_paste", "use_aug"):
+        assert getattr(got, attr) == getattr(want, attr), attr

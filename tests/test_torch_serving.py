@@ -267,7 +267,39 @@ def test_predict_http_roundtrip(client):
     assert r["model"]["n_queries"] == 4 and r["model"]["compute_dtype"] == "float32"
 
 
-def test_predict_refine_fails_cleanly(client):
+def test_predict_refine_fails_cleanly(client, monkeypatch):
+    """A refinement that raises answers a 500 with the error, not a broken
+    connection (until ROADMAP item 10 every ``refine=1`` did: the solver was
+    not ported)."""
+    import sod_tpu_torch.postprocess as post
+
+    def broken(*a, **kw):
+        raise RuntimeError("bilateral solver failed")
+
+    monkeypatch.setattr(post, "bilateral_solver_output", broken)
     st, r = client.post("/predict?refine=1", files={"image": ("a.png", _png())})
     assert st == 500
     assert "bilateral solver" in str(r)
+
+
+def _decode(b64):
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))), np.int32)
+
+
+def test_predict_refine_matches_sod_tpu(client, params, tmp_path):
+    """``/predict?refine=1`` answers 200 with ``refined_mask`` and
+    ``binary_mask`` at the upload's size, against ``sod_tpu``'s pipeline on
+    the same weights: the decoded refined mask within one uint8 level, the
+    binary mask equal wherever ``sod_tpu``'s refined mask is more than one
+    level from 127.5 (its 0.5 band)."""
+    st, r = client.post("/predict?refine=1", files={"image": ("a.png", _png())})
+    assert st == 200 and r["success"]
+    theirs = _sod_tpu(params).predict(_png(), refine=True)
+    for key in ("refined_mask", "binary_mask"):
+        assert _decode(r[key]).shape == (40, 48), key
+    soft, soft_j = _decode(r["refined_mask"]), _decode(theirs["refined_mask"])
+    assert np.abs(soft - soft_j).max() <= 1
+    off_band = np.abs(soft_j - 127.5) > 1
+    binary, binary_j = _decode(r["binary_mask"]), _decode(theirs["binary_mask"])
+    assert np.array_equal(binary[off_band], binary_j[off_band])
+    assert set(np.unique(binary)) <= {0, 255}
