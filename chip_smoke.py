@@ -169,6 +169,24 @@ Run after phase 13:
    idle share); ``python -m sod_tpu_torch.cli.generate_masks``'s ``main`` on
    the card by default over the same images.
 
+Then, after phase 16:
+
+20. the model options off the live config, at its full width (224 px, 6
+   decoder layers, 20 queries, seeded random weights): the service with
+   ``arch: resnet50`` (dilated-8 ResNet-50, bf16) at B=1 and B=8 against the
+   f32 forward of the same weights (TF32 off) and against its bf16 forward
+   on the CPU (cuDNN's convolutions against the CPU's), and its forward ms;
+   two ResNet-50 train steps at B=8 (every BN buffer moves, finite loss) and
+   one f32 step at B=2 and 64 px against the same step on the CPU; two
+   steps of the non-bc head at B=8 (dice, ranking and classification losses
+   exactly 0, 12 + 12 K2 launches a step, ``linear_classifier`` and ``norm``
+   moved by weight decay alone); the criterion's Hungarian branch at B=8,
+   L=6, Q=20 on 56 x 56 predictions and 224 px GT under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), every
+   assignment equal to scipy's on the same costs, its losses the CPU's, and
+   its ms; ``vit_n_last_cls`` through K2 (12 launches) against the plain
+   softmax.
+
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
 operations over the card's dense peak for their type (bf16; s8 for K8's
@@ -3339,6 +3357,362 @@ def tools_check(svc, cfg) -> None:
               "answers the in-process masks")
 
 
+# ------------------------------ model options off the live config (phase 20)
+# the ResNet-50 service (bf16) against the same weights' f32 forward (TF32
+# off) and against its own bf16 forward on the CPU (cuDNN's bf16
+# convolutions against the CPU's), on the last layer's masks of every query
+# and on objectness: bf16 rounding through 53 BatchNorms and 16 blocks.  The
+# random weights' mask logits are large, so most sigmoids saturate and a
+# pixel whose logit lies near 0 can move far: held are the mean gap and the
+# share of pixels whose binarised (> 0.5) masks differ (first H100 run, bf16
+# vs f32: mean 1.1e-5, one pixel's gap 0.96, 1.0e-5 of the pixels
+# differing binarised, objectness 1.6e-3; card vs CPU: 0, 0, 1.9e-3)
+RESNET_MASK_MEAN, RESNET_MASK_FLIPS, RESNET_OBJ_TOL = 0.02, 1e-3, 0.01
+# one f32 ResNet train step at a small shape (B=2, 64 px), card (TF32 off)
+# against the CPU: f32 sums in another order, amplified by batch-statistics
+# BatchNorm; Adam's first step turns small gradient elements into
+# sign-sized updates (first H100 run: loss rel 1.7e-6, grad_norm rel 6.1e-4,
+# update corr 0.9968, buffers rel 1.2e-5)
+OPT_LOSS_RTOL, OPT_GNORM_RTOL, OPT_MIN_UPDATE_CORR, OPT_BUF_RTOL = 1e-3, 2e-2, 0.98, 1e-3
+# the Hungarian branch's losses, card against CPU (f32; first H100 run: 1.05e-7)
+HUNGARIAN_RTOL = 1e-5
+# vit_n_last_cls through K2 against the plain softmax (bf16 ViT-S/8, 12
+# blocks): f32 sums in another order flip single bf16 roundings, which the
+# blocks carry on (first H100 run: max_abs 0.047, rel L2 0.0106, corr
+# 0.99994)
+HELPER_REL_L2, HELPER_MIN_CORR = 3e-2, 0.999
+
+
+def _mask_gaps(a, b):
+    """mean |a - b| of the last layer's masks, the share of their pixels
+    whose binarised masks differ, max |a - b| of its objectness (dicts of
+    the forward)."""
+    ma, mb = a["mask_pred"][:, -1].float(), b["mask_pred"][:, -1].float()
+    do = (a["objectness"][:, -1].float() - b["objectness"][:, -1].float()).abs()
+    return (float((ma - mb).abs().mean()), float(((ma > 0.5) != (mb > 0.5)).float().mean()),
+            float(do.max()))
+
+
+def _gaps_ok(gaps) -> bool:
+    return (gaps[0] <= RESNET_MASK_MEAN and gaps[1] <= RESNET_MASK_FLIPS
+            and gaps[2] <= RESNET_OBJ_TOL)
+
+
+def resnet_service_check(cfg):
+    """The service with ``arch: resnet50`` in bf16 at B=1 and B=8: agreement
+    with the f32 forward of the same weights and with the bf16 forward on
+    the CPU; forward ms."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, random_state_dict
+    from sod_tpu_torch.serving.inference import SelfMaskInference
+
+    cfg_r = dataclasses.replace(cfg, arch="resnet50", micro_batch=False)
+    svc = SelfMaskInference(cfg=cfg_r, device="cuda")
+    svc32 = SelfMaskInference(cfg=dataclasses.replace(cfg_r, compute_dtype="float32"),
+                              device="cuda", warmup=False)
+    rng = np.random.default_rng(20)
+    size = cfg.eval_image_size
+    imgs = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+    out = {}
+    with torch.inference_mode():
+        for b in (1, 8):
+            u8 = torch.from_numpy(imgs[:b]).cuda()
+            o16, o32 = svc.model(svc.prep(u8)), svc32.model(svc32.prep(u8))
+            out[b] = o16
+            gaps = _mask_gaps(o16, o32)
+            print(f"  ResNet-50 service B={b}: bf16 vs f32 mask mean {gaps[0]:.4g}, "
+                  f"binarised share differing {gaps[1]:.4g}, objectness max {gaps[2]:.4g}",
+                  flush=True)
+            if not _gaps_ok(gaps):
+                raise AssertionError(f"the bf16 ResNet service disagrees with its f32 forward "
+                                     f"at B={b}")
+        masks, objs = svc.forward_u8(imgs)
+        if not (torch.isfinite(masks).all() and masks.shape == (8, size // 4, size // 4)):
+            raise AssertionError(f"bad ResNet service output {tuple(masks.shape)}")
+        cpu = MaskFormer(svc.mcfg)
+        cpu.load_state_dict(random_state_dict(cpu, cfg.seed))
+        cpu = cpu.to(torch.bfloat16).eval()
+        o_cpu = cpu(svc.prep(torch.from_numpy(imgs[:1]).cuda()).cpu())
+        gaps_cpu = _mask_gaps({k: v.cpu() for k, v in out[1].items()}, o_cpu)
+    print(f"  ResNet-50 bf16 card vs CPU (cuDNN vs the CPU's convolutions) B=1: mask mean "
+          f"{gaps_cpu[0]:.4g}, binarised share differing {gaps_cpu[1]:.4g}, objectness "
+          f"max {gaps_cpu[2]:.4g}", flush=True)
+    if not _gaps_ok(gaps_cpu):
+        raise AssertionError("the card's bf16 ResNet forward disagrees with the CPU's")
+    ms = {"B=1": host_ms(lambda: svc.forward_u8(imgs[:1]), 20),
+          "B=8": host_ms(lambda: svc.forward_u8(imgs), 10),
+          "f32 B=8": host_ms(lambda: svc32.forward_u8(imgs), 5)}
+    print("  ResNet-50 service forward_u8: " + ", ".join(f"{k} {v:.3f} ms"
+                                                        for k, v in ms.items()), flush=True)
+    svc.close()
+    return ms
+
+
+def _update_corr(a_before, a_after, b_before, b_after, skip):
+    """Correlation of two runs' parameter updates (CPU state dicts), the
+    keys in ``skip`` left out."""
+    import torch
+
+    ua, ub = (torch.cat([(after[k] - before[k]).flatten() for k in after if k not in skip])
+              for before, after in ((a_before, a_after), (b_before, b_after)))
+    return float(np.corrcoef(ua.numpy(), ub.numpy())[0, 1])
+
+
+def resnet_train_check(cfg):
+    """Two bf16 ResNet train steps at B=8 (buffers move, finite loss), then
+    one f32 step at B=2 and 64 px on the card and on the CPU from the same
+    weights."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    cfg_r = dataclasses.replace(cfg, arch="resnet50")
+    mcfg = config_from(cfg_r)
+    sd = random_state_dict(MaskFormer(mcfg), cfg.seed)
+
+    def built(c, device):
+        model = MaskFormer(mcfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        opt = build_optimizer(c, model.parameters(), n_iters_per_epoch=100)
+        return model, make_train_step(c, model, opt)
+
+    model, step = built(cfg_r, "cuda")
+    batch = _to_cuda(synthetic_batch(np.random.default_rng(21), cfg.batch_size,
+                                     cfg.train_image_size, cfg.max_gt_masks))
+    bufs = [k for k in model.state_dict() if k.endswith(("running_mean", "running_var"))]
+    before = {k: model.state_dict()[k].clone() for k in bufs}
+    times, losses = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    moved = sum(not torch.equal(model.state_dict()[k], before[k]) for k in bufs)
+    print(f"  ResNet-50 bf16 train steps at B={cfg.batch_size}: losses "
+          f"{losses[0]:.6g}, {losses[1]:.6g}; {moved} of {len(bufs)} BN buffers moved; "
+          f"{times[0]:.1f} ms, {times[1]:.1f} ms", flush=True)
+    if not (np.isfinite(losses).all() and moved == len(bufs)):
+        raise AssertionError("the ResNet train step gave a non-finite loss or left BN "
+                             "buffers unchanged")
+
+    small = dataclasses.replace(cfg_r, compute_dtype="float32", batch_size=2)
+    sb = synthetic_batch(np.random.default_rng(22), 2, 64, cfg.max_gt_masks)
+    res = {}
+    for device in ("cuda", "cpu"):
+        mdl, stp = built(small, device)
+        b0 = {k: v.detach().clone() for k, v in mdl.state_dict().items()}
+        met = stp({k: torch.from_numpy(v).to(device) for k, v in sb.items()})
+        res[device] = ({k: float(v) for k, v in met.items()}, b0,
+                       {k: v.detach().clone().cpu() for k, v in mdl.state_dict().items()})
+    (mg, g0, g1), (mc, c0, c1) = res["cuda"], res["cpu"]
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    gnorm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / abs(mc["grad_norm"])
+    corr = _update_corr({k: v.cpu() for k, v in g0.items()}, g1, c0, c1, set(bufs))
+    buf_rel = max(float((g1[k] - c1[k]).abs().max() / c1[k].abs().max().clamp_min(1.0))
+                  for k in bufs)
+    print(f"  ResNet-50 f32 step at B=2, 64 px, card vs CPU: loss rel {loss_rel:.3g}, "
+          f"grad_norm rel {gnorm_rel:.3g}, update corr {corr:.6f}, BN buffers rel "
+          f"{buf_rel:.3g}", flush=True)
+    if not (loss_rel <= OPT_LOSS_RTOL and gnorm_rel <= OPT_GNORM_RTOL
+            and corr > OPT_MIN_UPDATE_CORR and buf_rel <= OPT_BUF_RTOL):
+        raise AssertionError("the ResNet train step on the card disagrees with the CPU's")
+    return times[1]
+
+
+def non_bc_train_check(cfg):
+    """Two bf16 steps of the non-bc head at B=8 through K2: the losses but
+    the contrastive term exactly 0, 12 + 12 K2 launches a step, and
+    ``linear_classifier`` and ``norm`` moved by weight decay alone (lr 1e-3,
+    so that the decay is larger than an f32 ulp of the weights)."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    cfg_n = dataclasses.replace(cfg, use_binary_classifier=False, lr=1e-3)
+    mcfg = config_from(cfg_n)
+    model = MaskFormer(mcfg)
+    model.load_state_dict(random_state_dict(model, cfg.seed))
+    model.cuda()
+    opt = build_optimizer(cfg_n, model.parameters(), n_iters_per_epoch=100)
+    step = make_train_step(cfg_n, model, opt)
+    batch = _to_cuda(synthetic_batch(np.random.default_rng(23), cfg.batch_size,
+                                     cfg.train_image_size, cfg.max_gt_masks))
+    names = ("linear_classifier.weight", "linear_classifier.bias", "norm.weight", "norm.bias")
+    params = dict(model.named_parameters())
+    reset_launch_counts()
+    launches, times = [], []
+    for _ in range(2):
+        before = {n: params[n].detach().clone() for n in names}
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        launches.append((fa.fwd_launches, fa.bwd_launches))
+        m = {k: float(v) for k, v in m.items()}
+        if not (m["dice_loss"] == m["ranking_loss"] == m["classification_loss"] == 0.0
+                and np.isfinite(m["loss"]) and m["contrastive_loss"] != 0.0):
+            raise AssertionError(f"the non-bc step's losses are not the contrastive term "
+                                 f"alone: {m}")
+        lr = opt.schedule(opt.count - 1)
+        for n in names:
+            want = before[n] + (before[n] * cfg_n.weight_decay) * (-lr)
+            err = float((params[n].detach() - want).abs().max())
+            if err > 1e-6 * float(before[n].abs().max()) or (
+                    before[n].any() and torch.equal(params[n], before[n])):
+                raise AssertionError(f"{n} did not move by weight decay alone (error {err})")
+    per_step = (launches[0], (launches[1][0] - launches[0][0], launches[1][1] - launches[0][1]))
+    depth = mcfg.vit.depth
+    print(f"  non-bc bf16 steps at B={cfg.batch_size}: losses dice, ranking, classification "
+          f"0; contrastive {m['contrastive_loss']:.6g}; K2 launches per step {per_step}; "
+          f"linear_classifier and norm moved by weight decay alone; "
+          f"{times[0]:.1f} ms, {times[1]:.1f} ms", flush=True)
+    if any(p != (depth, depth) for p in per_step):
+        raise AssertionError(f"expected {depth} + {depth} K2 launches a step, got {per_step}")
+    return launches[1], times[1]
+
+
+def hungarian_branch_check(cfg):
+    """``criterion_forward(use_classification_loss=True)`` at B=8, L=6, Q=20,
+    56 x 56 predictions and 224 px GT, under ``set_sync_debug_mode("error")``:
+    its assignments against scipy's on the same costs, its losses against the
+    CPU's; ms of the call and of the assignment alone."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from sod_tpu_torch.losses import criterion as crit
+
+    rng = np.random.default_rng(24)
+    b, l, q, side = cfg.batch_size, 6, cfg.n_queries, 56
+    sb = synthetic_batch(rng, b, cfg.train_image_size, cfg.max_gt_masks)
+    sig = lambda a: 1.0 / (1.0 + np.exp(-a))  # noqa: E731
+    host = {"mask_pred": sig(rng.standard_normal((b, l, q, side, side)) * 2).astype(np.float32),
+            "gt_masks": sb["gt_masks"].astype(np.float32), "gt_valid": sb["gt_valid"],
+            "objectness": sig(rng.standard_normal((b, l, q, 1))).astype(np.float32),
+            "features": rng.standard_normal((b, 384)).astype(np.float32),
+            "labels": sb["labels"]}
+
+    inputs = {device: {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+              for device in ("cuda", "cpu")}
+
+    def run(device):
+        t = inputs[device]
+        return crit.criterion_forward(t["mask_pred"], t["gt_masks"], t["gt_valid"],
+                                      t["objectness"], True, t["features"], t["labels"])
+
+    seen = []
+    solve = crit.hungarian
+
+    def spy(cost):
+        assign = solve(cost)
+        seen.append((cost, assign))
+        return assign
+
+    crit.hungarian = spy
+    try:
+        run("cuda")                  # uploads the interpolation matrices once
+        torch.cuda.synchronize()
+        seen.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run("cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        crit.hungarian = solve
+    cost, assign = (t.cpu().numpy() for t in seen[0])
+    for c, a in zip(cost, assign):
+        rows, cols = linear_sum_assignment(c)
+        if not np.array_equal(a, cols[np.argsort(rows)]):
+            raise AssertionError("an assignment on the card differs from scipy's")
+    want = run("cpu")
+    got = {k: v.cpu() for k, v in got.items()}
+    if not torch.equal(got["gt_to_query"], want["gt_to_query"]):
+        raise AssertionError("gt_to_query differs between the card and the CPU")
+    worst = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                for k in ("loss", "dice_loss", "classification_loss", "avg_iou"))
+    if worst > HUNGARIAN_RTOL:
+        raise AssertionError(f"the Hungarian branch's losses differ from the CPU's "
+                             f"(rel {worst:.3g})")
+    ms = cuda_ms(lambda: run("cuda"), 20)
+    cost_d = torch.from_numpy(cost).cuda()
+    solve_ms = cuda_ms(lambda: solve(cost_d), 20)
+    print(f"  Hungarian branch: {len(cost)} assignments of [2, {q}] equal scipy's, losses "
+          f"within {worst:.3g} of the CPU's, no host sync; criterion {ms:.3f} ms, "
+          f"assignment alone {solve_ms:.3f} ms", flush=True)
+    return ms, solve_ms
+
+
+def vit_helpers_check(cfg):
+    """``vit_n_last_cls`` (n 4, with the patch average) of a bf16 ViT-S/8 at
+    224 px, B=2, through K2 (12 launches) against the plain softmax."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import config_from
+    from sod_tpu_torch.models.vit import VisionTransformer, random_vit_state_dict, vit_n_last_cls
+    from sod_tpu_torch.ops import flash_attention as fa
+
+    vcfg = config_from(cfg).vit
+    if not vcfg.use_flash:
+        raise AssertionError("the live config must run K2")
+    sd = random_vit_state_dict(VisionTransformer(vcfg), cfg.seed)
+    vits = []
+    for c in (vcfg, dataclasses.replace(vcfg, use_flash=False)):
+        v = VisionTransformer(c)
+        v.load_state_dict(sd)
+        vits.append(v.to("cuda", torch.bfloat16).eval())
+    x = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = vit_n_last_cls(vits[0], x, n=4, return_patch_avgpool=True)
+        torch.cuda.synchronize()
+        n_launch = fa.fwd_launches
+        ref = vit_n_last_cls(vits[1], x, n=4, return_patch_avgpool=True)
+        if fa.fwd_launches != n_launch:
+            raise AssertionError("the plain helper launched K2")
+    max_abs, rel, corr = errors(got, ref)
+    print(f"  vit_n_last_cls through K2: {n_launch} launches, against the plain softmax "
+          f"max_abs {max_abs:.4g}, rel L2 {rel:.3g}, corr {corr:.8f}", flush=True)
+    if n_launch != vcfg.depth or not (rel <= HELPER_REL_L2 and corr > HELPER_MIN_CORR):
+        raise AssertionError("vit_n_last_cls through K2 disagrees or launched K2 "
+                             f"{n_launch} times")
+    return n_launch
+
+
+def model_options_check():
+    """Phase 20: the model options off the live config at full width."""
+    from sod_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    serve_ms = resnet_service_check(cfg)
+    resnet_step_ms = resnet_train_check(cfg)
+    (k2_fwd, k2_bwd), non_bc_ms = non_bc_train_check(cfg)
+    crit_ms, solve_ms = hungarian_branch_check(cfg)
+    helper_launches = vit_helpers_check(cfg)
+    phase(20, f"model options: ResNet-50 service B=1 {serve_ms['B=1']:.2f} ms, B=8 "
+              f"{serve_ms['B=8']:.2f} ms; ResNet-50 train step {resnet_step_ms:.1f} ms; "
+              f"non-bc step {non_bc_ms:.1f} ms with {k2_fwd}+{k2_bwd} K2 launches in two "
+              f"steps; Hungarian branch {crit_ms:.3f} ms without a host sync, assignments "
+              f"scipy's; vit_n_last_cls {helper_launches} K2 launches")
+    return {"non_bc K2": (k2_fwd, k2_bwd), "helper K2": helper_launches}
+
+
 def main():
     card_check()
     import torch
@@ -3367,6 +3741,7 @@ def main():
     step_counts, _, _ = fused_train_step_check()
     tr = fused_trainer_check()
     maskgen_check()
+    model_options_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)

@@ -1,11 +1,21 @@
 """Training objective of the port (twin of ``sod_tpu/losses/criterion.py``).
 
-The live branch of ``criterion_forward`` (``use_classification_loss=False``,
-the shipped ``use_binary_classifier: true``): dice over every (layer, query,
-valid GT row), the ranking loss over queries sorted by descending dice loss,
-the supervised InfoNCE term, and the IoU diagnostic; plus the
-``objectness is None`` branch.  The Hungarian classification branch is not
-ported (ROADMAP item 6, ``ops/hungarian.py``): it raises.
+``criterion_forward`` has three branches, as ``sod_tpu``'s:
+
+* the live one (``use_classification_loss=False``, the shipped
+  ``use_binary_classifier: true``): dice over every (layer, query, valid GT
+  row), the ranking loss over queries sorted by descending dice loss, and
+  ``gt_to_query`` the argmin of the last layer's dice;
+* the Hungarian classification branch (``use_classification_loss=True``):
+  the {background, foreground} targets of GT row 0 matched to queries by
+  ``ops.hungarian`` on the detached ``dice - objectness`` cost, then the
+  matched dice and ``-log(objectness + 1e-7)``;
+* ``objectness is None``: the contrastive term alone.
+
+Both loss branches add the supervised InfoNCE term and the IoU diagnostic.
+No branch synchronises with the host: the interpolation matrices are
+uploaded once per size and device and kept, and the assignment runs on the
+device.
 
 As in ``sod_tpu``, the GT stacks are adjoint-downsampled to the prediction
 resolution with the transposed bilinear matrices instead of upsampling the
@@ -15,11 +25,21 @@ the normalisation.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 
+from sod_tpu_torch.ops.hungarian import hungarian
 from sod_tpu_torch.ops.resize import _resize_matrix
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``_resize_matrix(n_in, n_out, "bilinear")`` [n_out, n_in] on
+    ``device``, uploaded once."""
+    return torch.from_numpy(_resize_matrix(n_in, n_out, "bilinear")).to(device)
 
 
 def dice_loss_matrix(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -27,6 +47,31 @@ def dice_loss_matrix(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     num = 2.0 * torch.matmul(pred.float(), gt.float().t())
     den = pred.sum(-1)[:, None] + gt.sum(-1)[None, :]
     return 1.0 - (num + 1.0) / (den + 1.0)
+
+
+def focal_loss_matrix(pred: torch.Tensor, gt: torch.Tensor, alpha: float = 0.25,
+                      gamma: float = 2.0, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise RetinaNet focal cost of pred [N, C] and gt [M, C] -> [N, M]:
+    ``(fl_pos . gt^T + fl_neg . (1 - gt)^T) / C``."""
+    hw = pred.shape[1]
+    p = pred.clamp(eps, 1.0 - eps)
+    fl_pos = ((1.0 - p) ** gamma) * (-torch.log(p))
+    fl_neg = (p ** gamma) * (-torch.log(1.0 - p))
+    if alpha >= 0:
+        fl_pos = alpha * fl_pos
+        fl_neg = (1.0 - alpha) * fl_neg
+    return (torch.matmul(fl_pos, gt.t()) + torch.matmul(fl_neg, (1.0 - gt).t())) / hw
+
+
+def bce_loss_matrix(pred: torch.Tensor, gt: torch.Tensor,
+                    eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise binary cross-entropy of pred [N, C] and gt [M, C], the mean
+    over the C pixels -> [N, M]."""
+    p = pred.clamp(eps, 1.0 - eps)
+    hw = pred.shape[1]
+    pos = torch.matmul(-torch.log(p), gt.t())
+    neg = torch.matmul(-torch.log(1.0 - p), (1.0 - gt).t())
+    return (pos + neg) / hw
 
 
 def contrastive_loss(features: torch.Tensor, labels: torch.Tensor,
@@ -105,8 +150,12 @@ def criterion_forward(
     :param gt_masks:  [B, M, H, W] binary GT stacks, padded over M.
     :param gt_valid:  [B, M] bool validity of each GT row.
     :param objectness: [B, L, Q, 1] or None.
+    :param use_classification_loss: the Hungarian-matched branch (the
+        train step passes ``not use_binary_classifier``).
     :return: ``loss`` plus the per-batch diagnostics of ``sod_tpu``'s dict
-        and ``gt_to_query`` [B]."""
+        and ``gt_to_query``: [B] in the live branch, [B, 2] (the background
+        and foreground targets' queries on the last layer) in the
+        classification branch."""
     b, l, q, ph, pw = mask_pred.shape
     _, m, H, W = gt_masks.shape
     dev = mask_pred.device
@@ -116,8 +165,8 @@ def criterion_forward(
     gtf = gt_masks.float()
     gt_flat = gtf.reshape(b, m, H * W)
 
-    wh = torch.from_numpy(_resize_matrix(ph, H, "bilinear")).to(dev)   # [H, ph]
-    ww = torch.from_numpy(_resize_matrix(pw, W, "bilinear")).to(dev)   # [W, pw]
+    wh = _bilinear_matrix(ph, H, dev)                                   # [H, ph]
+    ww = _bilinear_matrix(pw, W, dev)                                   # [W, pw]
     # <up(P), G> = <P, up^T(G)>: contract at the prediction resolution
     gt_down = torch.matmul(wh.t(), torch.matmul(gtf, ww)).reshape(b, m, ph * pw)
     ch, cw = wh.sum(0), ww.sum(0)                  # column sums: sum of up(P)
@@ -151,34 +200,52 @@ def criterion_forward(
             "avg_iou": zero,
         }
     if use_classification_loss:
-        raise NotImplementedError(
-            "the Hungarian classification branch of the criterion is not "
-            "ported to sod_tpu_torch (ROADMAP item 6, ops/hungarian.py)")
+        # {background, foreground} targets of GT row 0; the background's
+        # adjoint is up^T(1) - up^T(G), with up^T(1)[h, w] = ch[h] * cw[w]
+        ones_down = (ch[:, None] * cw[None, :]).reshape(-1)           # [hw]
+        gt0_down = gt_down[:, 0]
+        gt0_sum = gt_sums[:, 0]
+        targets_down = torch.stack([ones_down[None] - gt0_down, gt0_down], 1)
+        target_sums = torch.stack([H * W - gt0_sum, gt0_sum], 1)      # [B, 2]
+        dice_mq = _dice_lowres(pred_flat, targets_down, target_sums,
+                               pred_up_sum).transpose(-1, -2)         # [B, L, 2, Q]
+        obj = objectness[..., 0].float()                               # [B, L, Q]
+        cost = dice_mq - obj[:, :, None, :]
+        assign = hungarian(cost.detach().reshape(b * l, 2, q)).reshape(b, l, 2)
+        matched_dice = torch.gather(dice_mq, -1, assign[..., None])[..., 0]
+        matched_obj = torch.gather(obj, -1, assign)                    # [B, L, 2]
+        dice_per_img = matched_dice.sum((1, 2))
+        cls_per_img = (-torch.log(matched_obj + 1e-7)).sum((1, 2))
+        dice_loss = torch.where(img_valid, dice_per_img, zero).sum()
+        classification_loss = torch.where(img_valid, cls_per_img, zero).sum()
+        ranking_loss = zero
+        total_main = dice_loss + classification_loss
+        gt_to_query = assign[:, -1]                                    # [B, 2]
+        iou_query = assign[:, -1, 1]          # the matched foreground query
+    else:
+        # dice over every (layer, query, valid gt row): [B, L, Q, M]
+        dice_bl = _dice_lowres(pred_flat, gt_down, gt_sums, pred_up_sum)
+        dice_total_per_img = torch.where(gt_valid[:, None, None, :], dice_bl,
+                                         torch.zeros_like(dice_bl)).sum((1, 2, 3))
+        dice_q0 = dice_bl[..., 0]                  # [B, L, Q] vs gt row 0
+        rank_per_img = _rank_loss(dice_q0, objectness[..., 0]).sum(1)  # [B]
+        dice_loss = torch.where(img_valid, dice_total_per_img, zero).sum()
+        ranking_loss = torch.where(img_valid, rank_per_img, zero).sum()
+        classification_loss = zero
+        total_main = dice_loss + weight_rank_loss * ranking_loss
+        # gt_to_query: argmin dice of the last layer
+        gt_to_query = torch.argmin(dice_q0[:, -1], dim=-1)            # [B]
+        iou_query = gt_to_query
 
-    # dice over every (layer, query, valid gt row): [B, L, Q, M]
-    num = 2.0 * torch.matmul(pred_flat, gt_down[:, None].transpose(-1, -2))
-    den = pred_up_sum[..., None] + gt_sums[:, None, None, :]
-    dice_bl = 1.0 - (num + 1.0) / (den + 1.0)
-    dice_total_per_img = torch.where(gt_valid[:, None, None, :], dice_bl,
-                                     torch.zeros_like(dice_bl)).sum((1, 2, 3))
-
-    dice_q0 = dice_bl[..., 0]                      # [B, L, Q] vs gt row 0
-    rank_per_img = _rank_loss(dice_q0, objectness[..., 0]).sum(1)      # [B]
-
-    dice_loss = torch.where(img_valid, dice_total_per_img, zero).sum()
-    ranking_loss = torch.where(img_valid, rank_per_img, zero).sum()
-
-    # gt_to_query: argmin dice of the last layer; IoU of that query's mask,
-    # upsampled like sod_tpu's separable resize (W axis first, then H)
-    gt_to_query = torch.argmin(dice_q0[:, -1], dim=-1)                # [B]
-    sel_low = predf[:, -1][torch.arange(b, device=dev), gt_to_query]  # [B, ph, pw]
+    # IoU of the chosen query's mask, upsampled like sod_tpu's separable
+    # resize (W axis first, then H)
+    sel_low = predf[:, -1][torch.arange(b, device=dev), iou_query]    # [B, ph, pw]
     sel = torch.matmul(wh, torch.matmul(sel_low, ww.t())).reshape(b, H * W)
     bin_sel = sel > 0.5
     inter = ((gt0 > 0) & bin_sel).sum(-1).float()
     union = ((gt0 > 0) | bin_sel).sum(-1).float()
     iou = inter / (union + 1e-7)
 
-    total_main = dice_loss + weight_rank_loss * ranking_loss
     if features is not None and feature_labels is not None:
         con = contrastive_loss(features, feature_labels, temperature,
                                valid=img_valid)
@@ -193,10 +260,44 @@ def criterion_forward(
         "avg_contrastive_loss": con,
         "dice_loss": dice_loss,
         "ranking_loss": ranking_loss,
-        "classification_loss": zero,
+        "classification_loss": classification_loss,
         "avg_dice_loss": dice_loss / n_imgs,
         "avg_ranking_loss": ranking_loss / n_imgs,
-        "avg_classification_loss": zero,
+        "avg_classification_loss": classification_loss / n_imgs,
         "avg_iou": torch.where(img_valid, iou, zero).sum() / n_imgs,
     }
 
+
+def _dice_lowres(pred_flat: torch.Tensor, gt_down: torch.Tensor,
+                 gt_sums: torch.Tensor, pred_up_sum: torch.Tensor) -> torch.Tensor:
+    """Pairwise dice at the prediction resolution: pred_flat [B, L, Q, hw]
+    against the adjoint-downsampled GT rows gt_down [B, M, hw], with the
+    full-resolution sums gt_sums [B, M] and pred_up_sum [B, L, Q] ->
+    [B, L, Q, M]."""
+    num = 2.0 * torch.matmul(pred_flat, gt_down[:, None].transpose(-1, -2))
+    den = pred_up_sum[..., None] + gt_sums[:, None, None, :]
+    return 1.0 - (num + 1.0) / (den + 1.0)
+
+
+@dataclass
+class Criterion:
+    """The configured criterion (``sod_tpu``'s ``Criterion``).  The dice,
+    focal, BCE and classification weights are kept for the config; as in
+    ``sod_tpu``, only dice enters the total and the others are never read
+    by ``criterion_forward``."""
+    weight_dice_loss: float = 1.0
+    weight_focal_loss: float = 0.0
+    weight_bce_loss: float = 0.0
+    weight_contrastive_loss: float = 0.1
+    temperature: float = 0.07
+    weight_cls_loss: float = 0.05
+    weight_rank_loss: float = 1.0
+
+    def __call__(self, mask_pred, gt_masks, gt_valid, objectness,
+                 use_classification_loss, features=None, feature_labels=None):
+        return criterion_forward(
+            mask_pred, gt_masks, gt_valid, objectness,
+            use_classification_loss, features, feature_labels,
+            weight_contrastive_loss=self.weight_contrastive_loss,
+            weight_rank_loss=self.weight_rank_loss,
+            temperature=self.temperature)

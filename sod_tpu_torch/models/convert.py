@@ -130,8 +130,18 @@ def resnet_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
 def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     """A ``sod_tpu`` MaskFormer tree (numpy leaves, e.g. from
     ``jax.device_get``) -> the reference's state-dict arrays: the same
-    keys and arrays as ``sod_tpu.models.convert.export_maskformer``."""
-    out = vit_state_dict_from_jax(params["encoder"], "encoder.")
+    keys and arrays as ``sod_tpu.models.convert.export_maskformer`` for the
+    ViT encoder, either head.  For the ResNet-50 encoder (a tree with a
+    ``prefix`` stem) the layout is the port's own, since ``sod_tpu``'s
+    export has no ResNet branch: ``encoder.`` before torchvision's names
+    (``resnet_state_dict_from_jax``) and ``linear_layer.{weight,bias}`` an
+    (out, in) linear."""
+    if "prefix" in params["encoder"]:
+        out = {f"encoder.{k}": v
+               for k, v in resnet_state_dict_from_jax(params["encoder"]).items()}
+        _linear(out, "linear_layer", params["linear_layer"])
+    else:
+        out = vit_state_dict_from_jax(params["encoder"], "encoder.")
 
     dec = params["decoder"]
     for i in range(_depth(dec["layers"])):

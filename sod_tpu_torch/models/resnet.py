@@ -13,13 +13,17 @@ state dict loads as it is after ``models.convert.convert_resnet50``.  The
 public functions keep ``sod_tpu``'s layout: images NHWC [B, H, W, 3], stage
 outputs NHWC (views of the NCHW tensors the convolutions produce).
 
-Arithmetic as ``sod_tpu``'s: f32 convolutions; inference BN folded into a
-scale and a bias in f32 (``scale = weight * rsqrt(var + eps)``, ``bias -
-mean * scale``); train-mode BN by the batch's biased variance, the running
-statistics updated with the unbiased one at ``momentum``.  cuDNN would run
-an f32 convolution in TF32 by default: a caller that wants f32 on the card
-turns ``torch.backends.cudnn.allow_tf32`` off around the forward (the mask
-generator does).
+Arithmetic as ``sod_tpu``'s: convolutions in the input's dtype with f32
+accumulation and one rounding to it (bf16 in the MaskFormer's train step
+and service, f32 for the mask generator); inference BN folded into a scale
+and a bias in f32 (``scale = weight * rsqrt(var + eps)``, ``bias - mean *
+scale``), cast back once; train-mode BN in f32 by the batch's biased
+variance, the running statistics updated with the unbiased one at
+``momentum``.  cuDNN would run an f32 convolution in TF32 by default: a
+caller that wants f32 on the card turns ``torch.backends.cudnn.allow_tf32``
+off around the forward (the mask generator does).  ``conv_init``,
+``bn_init`` and ``resnet_state_init`` draw ``sod_tpu``'s init from a
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -94,8 +98,12 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 1)
 
 
-def _conv_weight(rng: np.random.Generator, cout: int, cin: int, k: int) -> torch.Tensor:
-    """He-normal N(0, sqrt(2 / (k * k * cout))), the reference's init."""
+def _conv_weight(rng: Optional[np.random.Generator], cout: int, cin: int,
+                 k: int) -> torch.Tensor:
+    """He-normal N(0, sqrt(2 / (k * k * cout))), the reference's init;
+    uninitialised without ``rng``."""
+    if rng is None:
+        return torch.empty(cout, cin, k, k)
     return torch.from_numpy(
         (rng.standard_normal((cout, cin, k, k)) * math.sqrt(2.0 / (k * k * cout))
          ).astype(np.float32))
@@ -163,13 +171,16 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Stem, then ``layer1`` .. ``layer4`` of blocks ``0`` .. ``n - 1``."""
+    """Stem, then ``layer1`` .. ``layer4`` of blocks ``0`` .. ``n - 1``.
+    ``seed=None`` leaves the convolutions uninitialised, for a state dict to
+    fill."""
 
-    def __init__(self, arch: str = "resnet50", deep_base: bool = False, seed: int = 0):
+    def __init__(self, arch: str = "resnet50", deep_base: bool = False,
+                 seed: Optional[int] = 0):
         super().__init__()
         block_type, layers = _FAMILY[arch]
         self.arch, self.block_type = arch, block_type
-        rng = np.random.default_rng(seed)
+        rng = None if seed is None else np.random.default_rng(seed)
         if deep_base:
             self.conv1 = _Conv(_conv_weight(rng, 64, 3, 3))
             self.bn1 = BatchNorm(64)
@@ -190,6 +201,31 @@ class ResNet(nn.Module):
                 blocks.append(block(rng, cin, planes, has_down))
                 cin = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+
+
+def conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
+    """``sod_tpu``'s ``conv_init`` drawn from ``gen``: He-normal
+    N(0, sqrt(2 / (kh * kw * cout))), in the torch layout (cout, cin, kh, kw)."""
+    return torch.randn(cout, cin, kh, kw, generator=gen) * math.sqrt(2.0 / (kh * kw * cout))
+
+
+def bn_init(c: int) -> Dict[str, torch.Tensor]:
+    """``sod_tpu``'s ``bn_init``: BN at the identity, under torch's names."""
+    return {"weight": torch.ones(c), "bias": torch.zeros(c),
+            "running_mean": torch.zeros(c), "running_var": torch.ones(c)}
+
+
+def resnet_state_init(model: ResNet, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A state dict for ``model`` (any family member, either stem) drawn from
+    ``gen`` by ``conv_init`` and ``bn_init``, in module order."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, _Conv):
+            cout, cin, kh, kw = mod.weight.shape
+            out[f"{name}.weight"] = conv_init(gen, kh, kw, cin, cout)
+        elif isinstance(mod, BatchNorm):
+            out.update({f"{name}.{k}": v for k, v in bn_init(mod.weight.shape[0]).items()})
+    return out
 
 
 def resnet_init(arch: str = "resnet50", deep_base: bool = False, seed: int = 0) -> ResNet:

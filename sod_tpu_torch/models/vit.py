@@ -3,14 +3,16 @@
 Images are NHWC [B, H, W, 3]; tokens [B, N, D] with CLS at index 0.
 Parameter names follow the reference's ``vision_transformer.py`` (DINO
 ``deit_small``), so a real checkpoint and weights carried over from
-``sod_tpu`` load alike.
+``sod_tpu`` load alike.  Besides the forward (``vit_apply``): the
+attention-map and token helpers of the DINO toolkit (``vit_selfattention``,
+``vit_get_tokens``, ``vit_n_last_*``), the DINO head, and ``vit_init``.
 """
 from __future__ import annotations
 
 import math
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +24,8 @@ from sod_tpu_torch.ops.fused_attn import fused_ln_attn, fused_ln_attn_infer
 from sod_tpu_torch.ops.fused_block import fused_vit_block
 from sod_tpu_torch.ops.fused_block_int8 import fused_vit_block_int8
 from sod_tpu_torch.ops.fused_mlp import fused_ln_mlp
-from sod_tpu_torch.ops.layers import LayerNorm, Linear, linear, mlp_apply
+from sod_tpu_torch.ops.layers import (LayerNorm, Linear, gelu, layer_norm_init, linear,
+                                      linear_init, mlp_apply, mlp_init, trunc_normal)
 from sod_tpu_torch.ops.resize import interpolate_bicubic
 
 
@@ -95,7 +98,15 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(d, LN_EPS)
         self.mlp = Mlp(d, MLP_RATIO * d)
 
-    def forward(self, x, key_mask=None):
+    def forward(self, x, key_mask=None, return_attn: bool = False):
+        """:param return_attn: return ``(x, probs)``, the attention's f32
+        probabilities [B, H, N, N] beside the output, with the plain
+        softmax and the erf-GELU MLP whatever ``cfg`` says
+        (``sod_tpu``'s ``_block_apply(return_attn=...)``)."""
+        if return_attn:
+            y, probs = self.attn(self.norm1(x), key_mask, return_attn=True)
+            x = x + y
+            return x + self.mlp(self.norm2(x)), probs
         x = x + self.attn(self.norm1(x), key_mask)
         if self.fused_mlp:
             return fused_ln_mlp(x, self, eps=LN_EPS)
@@ -263,6 +274,134 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
         if all_layers:
             per_layer.append(vit.norm(tokens))
     return torch.stack(per_layer) if all_layers else vit.norm(tokens)
+
+
+def vit_last_selfattention(vit: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """The last block's attention probabilities [B, H, 1+N, 1+N] (the
+    reference's ``get_last_selfattention``); the blocks before it run as
+    ``vit_apply``'s unfused path does (K2 under ``use_flash``)."""
+    tokens, _ = prepare_tokens(vit, x)
+    for blk in vit.blocks[:-1]:
+        tokens = blk(tokens)
+    return vit.blocks[-1](tokens, return_attn=True)[1]
+
+
+def vit_selfattention(vit: VisionTransformer, x: torch.Tensor,
+                      all_blocks: bool = False) -> torch.Tensor:
+    """Attention probabilities of the last block [B, H, 1+N, 1+N], or with
+    ``all_blocks`` of every block [L, B, H, 1+N, 1+N] (the reference's
+    ``forward_selfattention``): every block through the plain softmax."""
+    tokens, _ = prepare_tokens(vit, x)
+    attns = []
+    for blk in vit.blocks:
+        tokens, probs = blk(tokens, return_attn=True)
+        attns.append(probs)
+    return torch.stack(attns) if all_blocks else attns[-1]
+
+
+def vit_get_tokens(vit: VisionTransformer, x: torch.Tensor,
+                   layers: Optional[Sequence[int]] = None,
+                   patch_tokens: bool = False, norm: bool = True) -> torch.Tensor:
+    """Tokens of every block (or of ``layers``) [B, L', 1+N, D], or their CLS
+    tokens [B, L', D] without ``patch_tokens`` (the reference's
+    ``get_tokens``).
+
+    :param norm: each layer through the final LayerNorm (``vit_apply(...,
+        all_layers=True)``, K2 under ``use_flash``); False: the raw block
+        outputs."""
+    if norm:
+        stacked = vit_apply(vit, x, all_layers=True)          # [L, B, 1+N, D]
+    else:
+        tokens, _ = prepare_tokens(vit, x)
+        raw = []
+        for blk in vit.blocks:
+            tokens = blk(tokens)
+            raw.append(tokens)
+        stacked = torch.stack(raw)
+    if layers is not None:
+        stacked = stacked[list(layers)]
+    stacked = stacked.transpose(0, 1)                         # [B, L', 1+N, D]
+    return stacked if patch_tokens else stacked[:, :, 0]
+
+
+def vit_n_last_cls(vit: VisionTransformer, x: torch.Tensor, n: int = 1,
+                   return_patch_avgpool: bool = False) -> torch.Tensor:
+    """CLS tokens of the n last blocks concatenated [B, n * D] (the
+    reference's ``forward_return_n_last_blocks``), then the last block's
+    mean patch token with ``return_patch_avgpool``."""
+    stacked = vit_apply(vit, x, all_layers=True)
+    outs = [stacked[-(n - i)][:, 0] for i in range(n)]
+    if return_patch_avgpool:
+        outs.append(stacked[-1][:, 1:].mean(dim=1))
+    return torch.cat(outs, dim=-1)
+
+
+def vit_n_last_patch_emb(vit: VisionTransformer, x: torch.Tensor,
+                         n: int = 1) -> torch.Tensor:
+    """Patch tokens of the n last blocks stacked on a trailing axis
+    [B, N, D, n] (the reference's ``return_patch_emb_from_n_last_blocks``)."""
+    stacked = vit_apply(vit, x, all_layers=True)
+    return torch.stack([stacked[-(n - i)][:, 1:] for i in range(n)], dim=-1)
+
+
+def dino_head_init(gen: torch.Generator, in_dim: int, out_dim: int, nlayers: int = 3,
+                   hidden_dim: int = 2048, bottleneck_dim: int = 256) -> Dict:
+    """The DINO projection head (``sod_tpu``'s ``dino_head_init``): the MLP
+    in -> hidden x (nlayers - 1) -> bottleneck as ``trunc_normal`` linears
+    (``{"mlp": [{"weight", "bias"}, ...]}``), and the weight-normed last
+    layer's direction ``last_v`` (out_dim, bottleneck) N(0, 0.02) with its
+    gain ``last_g`` (out_dim,) ones."""
+    nlayers = max(nlayers, 1)
+    dims = ([in_dim, bottleneck_dim] if nlayers == 1
+            else [in_dim] + [hidden_dim] * (nlayers - 1) + [bottleneck_dim])
+    return {"mlp": mlp_init(gen, dims),
+            "last_v": torch.randn(out_dim, bottleneck_dim, generator=gen) * 0.02,
+            "last_g": torch.ones(out_dim)}
+
+
+def dino_head_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """MLP with erf-GELU between its linears, the output L2-normalised, then
+    the weight-normed last layer (each output row of ``last_v`` normalised,
+    times its gain), accumulated in f32 and cast back to ``x.dtype``."""
+    mlp: List[Dict[str, torch.Tensor]] = params["mlp"]
+    h = x
+    for i, fc in enumerate(mlp):
+        h = linear(h, fc["weight"], fc["bias"])
+        if i < len(mlp) - 1:
+            h = gelu(h)
+    h = h / torch.linalg.vector_norm(h, dim=-1, keepdim=True).clamp_min(1e-12)
+    v = params["last_v"]
+    v_unit = v / torch.linalg.vector_norm(v, dim=1, keepdim=True).clamp_min(1e-12)
+    w = v_unit * params["last_g"][:, None]
+    return torch.matmul(h.float(), w.to(h.dtype).float().t()).to(h.dtype)
+
+
+def vit_init(gen: torch.Generator, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
+    """A ``VisionTransformer(cfg)`` state dict with ``sod_tpu``'s
+    ``vit_init`` distributions, drawn from ``gen``: the patch conv
+    torch-default U(+-1/sqrt(3 p^2)) (weight and bias), CLS zeros, the
+    pos-embed and every block linear ``trunc_normal`` with zero biases,
+    LayerNorms ones and zeros."""
+    d, p = cfg.embed_dim, cfg.patch_size
+    patch = linear_init(gen, p * p * 3, d, init="torch_default")
+    out = {
+        # the linear's rows are flattened (py, px, c); the conv is (D, C, py, px)
+        "patch_embed.proj.weight": patch["weight"].reshape(d, p, p, 3).permute(0, 3, 1, 2)
+        .contiguous(),
+        "patch_embed.proj.bias": patch["bias"],
+        "cls_token": torch.zeros(1, 1, d),
+        "pos_embed": trunc_normal(gen, (1, cfg.n_pos_tokens, d)),
+    }
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}."
+        lins = {"attn.qkv": linear_init(gen, d, 3 * d), "attn.proj": linear_init(gen, d, d)}
+        fc1, fc2 = mlp_init(gen, [d, MLP_RATIO * d, d])
+        lins.update({"mlp.fc1": fc1, "mlp.fc2": fc2,
+                     "norm1": layer_norm_init(d), "norm2": layer_norm_init(d)})
+        for name, t in lins.items():
+            out.update({f"{pre}{name}.{k}": v for k, v in t.items()})
+    out.update({f"norm.{k}": v for k, v in layer_norm_init(d).items()})
+    return out
 
 
 def _dynamic_resize_matrix(in_size: int, out_size: int,

@@ -8,7 +8,8 @@ The ViT self-attention can route through the flash attention kernel K2
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -18,16 +19,17 @@ from sod_tpu_torch.ops.layers import Linear, linear
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-         key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         key_mask: Optional[torch.Tensor] = None, return_probs: bool = False):
     """softmax(q k^T * scale) v over [B, H, N, hd].
 
-    :param key_mask: optional [B, Nk] bool; False keys leave the softmax."""
+    :param key_mask: optional [B, Nk] bool; False keys leave the softmax.
+    :param return_probs: also return the f32 probabilities [B, H, N, Nk]."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    return (out, probs) if return_probs else out
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -43,15 +45,21 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def self_attention_qkv(qkv: Linear, proj: Linear, x: torch.Tensor,
                        n_heads: int,
                        key_mask: Optional[torch.Tensor] = None,
-                       use_flash: bool = False) -> torch.Tensor:
+                       use_flash: bool = False, return_attn: bool = False):
     """ViT fused-QKV self-attention over x [B, N, D]; qkv columns [q|k|v].
 
     :param use_flash: softmax(q k^T) v through ``flash_attention`` (K2;
-        ``sod_tpu/ops/attention.py:89-92``), else through ``sdpa``."""
+        ``sod_tpu/ops/attention.py:89-92``), else through ``sdpa``.
+    :param return_attn: return ``(out, probs)`` with the f32 probabilities
+        [B, H, N, N], through ``sdpa`` whatever ``use_flash`` says: K2 keeps
+        no probabilities (``sod_tpu/ops/attention.py:85-88``)."""
     b, n, d = x.shape
     hd = d // n_heads
     y = qkv(x).reshape(b, n, 3, n_heads, hd)
     q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+    if return_attn:
+        out, probs = sdpa(q, k, v, hd ** -0.5, key_mask, return_probs=True)
+        return proj(_merge_heads(out)), probs
     if use_flash:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               hd ** -0.5, key_mask)
@@ -86,9 +94,21 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x, key_mask=None):
+    def forward(self, x, key_mask=None, return_attn: bool = False):
         return self_attention_qkv(self.qkv, self.proj, x, self.n_heads,
-                                  key_mask=key_mask, use_flash=self.use_flash)
+                                  key_mask=key_mask, use_flash=self.use_flash,
+                                  return_attn=return_attn)
+
+
+def mha_init(gen: torch.Generator, dim: int) -> Dict[str, torch.Tensor]:
+    """``sod_tpu``'s ``mha_init`` under ``nn.MultiheadAttention``'s names:
+    in_proj xavier-uniform U(+-sqrt(6 / (dim + 3 dim))) with a zero bias,
+    out_proj U(+-1/sqrt(dim)) with a zero bias."""
+    bound = math.sqrt(6.0 / (dim + 3 * dim))
+    in_w = (torch.rand(3 * dim, dim, generator=gen) * 2.0 - 1.0) * bound
+    out_w = (torch.rand(dim, dim, generator=gen) * 2.0 - 1.0) / math.sqrt(dim)
+    return {"in_proj_weight": in_w, "in_proj_bias": torch.zeros(3 * dim),
+            "out_proj.weight": out_w, "out_proj.bias": torch.zeros(dim)}
 
 
 class MultiheadAttention(nn.Module):

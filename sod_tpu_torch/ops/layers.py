@@ -12,16 +12,68 @@ Conventions:
 
 The ``nn.Module`` classes only hold parameters under the reference's key
 names; their ``forward`` calls the functions.  Parameters start
-uninitialised: a state dict or ``models.maskformer.random_state_dict``
-fills them.
+uninitialised: a state dict fills them, from ``models.maskformer``'s
+``random_state_dict`` (numpy) or ``maskformer_init`` (a ``torch.Generator``,
+through the ``*_init`` functions here, which draw ``sod_tpu``'s
+distributions and return tensors under the torch names).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def _norm_cdf(x: float) -> float:
+    return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+
+def trunc_normal(gen: torch.Generator, shape, std: float = 0.02, mean: float = 0.0,
+                 a: float = -2.0, b: float = 2.0) -> torch.Tensor:
+    """``sod_tpu``'s truncated normal: U in [2 cdf(a') - 1, 2 cdf(b') - 1]
+    (a' = (a - mean) / std), erfinv, scaled and shifted, clipped to [a, b];
+    f32."""
+    low = _norm_cdf((a - mean) / std)
+    high = _norm_cdf((b - mean) / std)
+    u = torch.rand(shape, generator=gen) * (2 * high - 2 * low) + (2 * low - 1)
+    return (torch.erfinv(u) * (std * math.sqrt(2.0)) + mean).clamp(a, b)
+
+
+def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
+
+
+def linear_init(gen: torch.Generator, in_features: int, out_features: int,
+                bias: bool = True, init: str = "trunc_normal") -> Dict[str, torch.Tensor]:
+    """``{"weight": (out, in), "bias": (out,)}`` as ``sod_tpu``'s
+    ``linear_init``: ``trunc_normal`` N(0, 0.02) clipped at +-2 with a zero
+    bias (the ViT's linears), or ``torch_default`` U(+-1/sqrt(in)) for both
+    (the decoder's and the heads')."""
+    if init == "trunc_normal":
+        out = {"weight": trunc_normal(gen, (out_features, in_features))}
+        if bias:
+            out["bias"] = torch.zeros(out_features)
+    elif init == "torch_default":
+        bound = 1.0 / math.sqrt(in_features)
+        out = {"weight": _uniform(gen, (out_features, in_features), bound)}
+        if bias:
+            out["bias"] = _uniform(gen, (out_features,), bound)
+    else:
+        raise ValueError(init)
+    return out
+
+
+def mlp_init(gen: torch.Generator, dims: Sequence[int],
+             init: str = "trunc_normal") -> List[Dict[str, torch.Tensor]]:
+    """A stack of ``linear_init`` linears: dims = [in, hidden..., out]."""
+    return [linear_init(gen, a, b, init=init) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def layer_norm_init(dim: int) -> Dict[str, torch.Tensor]:
+    return {"weight": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

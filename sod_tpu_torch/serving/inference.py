@@ -291,6 +291,16 @@ class SelfMaskInference(PredictPipeline):
     def __init__(self, *, cfg, device, model_path: Optional[str] = None,
                  state_dict: Optional[Dict] = None, warmup: bool = True):
         self.cfg = cfg
+        if not cfg.use_binary_classifier:
+            # sod_tpu's check and message (serving/inference.py:345-359)
+            raise ValueError(
+                "serving requires use_binary_classifier=True: the "
+                "/predict path selects by objectness (ref app.py:267-277) "
+                "and the non-bc forward carries no objectness head (ref "
+                "maskformer.py:245-250 omits the key — the reference's "
+                "own app would KeyError too).  Objectness-based "
+                "evaluation of non-bc models is likewise unsupported, "
+                "matching the reference (see docs/PARITY.md)")
         int8 = getattr(cfg, "quantize", "none") == "int8"
         if int8 and cfg.arch != "vit_small":
             raise ValueError(

@@ -36,7 +36,8 @@ from sod_tpu_torch.data.factory import get_dataset
 from sod_tpu_torch.data.loader import DataLoader
 from sod_tpu_torch.metrics.average_meter import AverageMeter
 from sod_tpu_torch.metrics.batched import eval_batch_metrics, eval_batch_metrics_lowres
-from sod_tpu_torch.models.maskformer import MaskFormerConfig, config_from, maskformer_apply_canvas
+from sod_tpu_torch.models.maskformer import (MaskFormerConfig, config_from, maskformer_apply_canvas,
+                                             require_vit_canvas)
 from sod_tpu_torch.models.vit import pos_embed_canvas_device
 from sod_tpu_torch.ops.resize import _resize_matrix, bilinear_separable
 
@@ -121,6 +122,13 @@ class Evaluator:
         self.model = model
         self.cfg = cfg
         self.mcfg = mcfg or config_from(cfg)
+        if not self.mcfg.use_binary_classifier:
+            # sod_tpu's check and message (train/evaluator.py:83-92)
+            raise ValueError(
+                "Evaluator requires use_binary_classifier=True: selection "
+                "is argmax objectness (ref evaluator pyc 219-221) and the "
+                "non-bc forward has no objectness head — unsupported in "
+                "the reference as well (docs/PARITY.md)")
         self.dir_dataset = dir_dataset or cfg.dir_dataset
         if not os.path.isdir(self.dir_dataset):
             raise FileNotFoundError(self.dir_dataset)
@@ -174,6 +182,7 @@ class Evaluator:
     def _step(self, scale_factor: int, image_u8, gt_u8, grid_sizes, sizes,
               cost_type: str) -> Dict[str, torch.Tensor]:
         """One canvas batch on the device: {metric: [B]}."""
+        require_vit_canvas(self.mcfg)
         compute = (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                    else torch.float32)
         image, token_mask, pos_embed = canvas_inputs(self.model, image_u8, grid_sizes,

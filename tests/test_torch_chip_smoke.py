@@ -169,3 +169,21 @@ def test_refinement_pool_and_tools_phases_are_run_and_fail_without_a_card(check,
                                       device="cpu", warmup=False)
     with pytest.raises(AssertionError, match=match):
         getattr(cs, check)(svc, cfg)
+
+
+@pytest.mark.parametrize("check", ["resnet_service_check", "resnet_train_check",
+                                   "non_bc_train_check", "hungarian_branch_check",
+                                   "vit_helpers_check"])
+def test_model_options_phase_is_run_and_fails_without_a_card(check):
+    """Phase 20 (the ResNet-50 service and train step, the non-bc step, the
+    Hungarian branch, the ViT helpers) is part of ``main``; off the card
+    each of its checks fails instead of running on the CPU."""
+    import inspect
+
+    import chip_smoke as cs
+    from sod_tpu_torch.config import load_config
+
+    assert "model_options_check()" in inspect.getsource(cs.main)
+    assert f"{check}(cfg)" in inspect.getsource(cs.model_options_check)
+    with pytest.raises((RuntimeError, AssertionError)):
+        getattr(cs, check)(load_config(cs.CONFIG))

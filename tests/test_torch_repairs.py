@@ -4,12 +4,18 @@
 flags and the web app's ``--no-model``; ``get_dataset``'s errors for the
 dataset names the reference factory mentions without a class; the
 evaluate CLI's refusal of an orbax directory (ROADMAP fault F1) and the
-Trainer's dataset built through ``get_dataset`` (fault F2)."""
+Trainer's dataset built through ``get_dataset`` (fault F2);
+``learnable_pixel_decoder: true``, which ``sod_tpu`` runs as the bilinear
+forward (fault F3); the service's, the Evaluator's and the Trainer's errors
+for the non-bc head, and the Trainer's skipped evaluation for the ResNet
+(fault F4)."""
+import dataclasses
 import json
 import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from PIL import Image
 
@@ -278,3 +284,86 @@ def test_trainer_builds_the_duts_train_split_as_before(settings):
     for attr in ("p_train_imgs", "p_train_gts", "pseudo_masks", "img_size", "scale_range",
                  "use_pseudo_masks", "use_copy_paste", "use_aug"):
         assert getattr(got, attr) == getattr(want, attr), attr
+
+
+# ---------------------------- F3: learnable_pixel_decoder is the bilinear one
+
+def test_learnable_pixel_decoder_runs_the_bilinear_forward():
+    """``sod_tpu`` accepts ``learnable_pixel_decoder: true`` and never reads
+    it; the port refused the config.  Now both accept it and the forward is
+    the ``False`` one, bit for bit."""
+    from sod_tpu.models.maskformer import config_from as jax_config_from
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+
+    cfg = Config(learnable_pixel_decoder=True)
+    assert jax_config_from(cfg).learnable_pixel_decoder
+    mcfg = config_from(cfg)
+    assert mcfg.learnable_pixel_decoder
+    assert mcfg == dataclasses.replace(config_from(Config()), learnable_pixel_decoder=True)
+    models = [MaskFormer(c) for c in (mcfg, config_from(Config()))]
+    sd = random_state_dict(models[0], 0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 32, 32, 3))
+                         .astype(np.float32))
+    outs = []
+    for m in models:
+        m.load_state_dict(sd)
+        with torch.no_grad():
+            outs.append(m(x))
+    assert set(outs[0]) == {"mask_pred", "objectness", "features"}
+    assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+
+
+# ------------------ F4: the non-bc head's errors are sod_tpu's, and its Trainer
+
+@pytest.mark.parametrize("extra", [{}, {"quantize": "int8", "arch": "resnet50"}])
+def test_service_refuses_the_non_bc_head_with_sod_tpus_error(extra):
+    """Checked first, before the int8 + resnet check, as in ``sod_tpu``."""
+    from sod_tpu.serving.inference import SelfMaskInference as JaxInference
+
+    cfg = Config(use_binary_classifier=False, compute_dtype="float32", **extra)
+    with pytest.raises(ValueError) as got:
+        port_inference.SelfMaskInference(cfg=cfg, device="cpu", warmup=False)
+    with pytest.raises(ValueError) as want:
+        JaxInference(cfg=cfg, warmup=False)
+    assert str(got.value) == str(want.value)
+    assert "serving requires use_binary_classifier=True" in str(got.value)
+
+
+def test_evaluator_refuses_the_non_bc_head_with_sod_tpus_error(tmp_path):
+    from sod_tpu.train.evaluator import Evaluator as JaxEvaluator
+
+    cfg = Config(dir_dataset=str(tmp_path), use_binary_classifier=False)
+    with pytest.raises(ValueError) as got:
+        Evaluator(None, cfg, device="cpu")
+    with pytest.raises(ValueError) as want:
+        JaxEvaluator(None, cfg)
+    assert str(got.value) == str(want.value) and "objectness" in str(got.value)
+
+
+def test_trainer_with_the_non_bc_head_trains_then_fails_on_evaluation(settings):
+    """``sod_tpu``'s Trainer builds the non-bc model and trains it on the
+    contrastive term alone; its evaluation raises the Evaluator's error."""
+    cfg = Config(**dict(settings, use_binary_classifier=False))
+    trainer = Trainer(cfg, device="cpu",
+                      mcfg=dataclasses.replace(TCFG, use_binary_classifier=False))
+    with pytest.raises(ValueError, match="Evaluator requires use_binary_classifier=True"):
+        trainer(n_epochs=1)
+    (rec,) = [r for r in _records(trainer) if "avg_loss" in r]
+    assert rec["avg_dice_loss"] == rec["avg_ranking_loss"] == 0.0
+    assert np.isfinite(rec["avg_loss"]) and os.path.isfile(trainer.latest_path)
+
+
+def test_trainer_with_the_resnet_trains_and_skips_the_canvas_evaluation(settings):
+    """``sod_tpu``'s canvas forward asserts the ViT encoder and its Trainer
+    logs the benchmark as skipped; so does the port's, on its ValueError.
+    The BN buffers follow the batches."""
+    mcfg = dataclasses.replace(TCFG, arch="resnet50")
+    trainer = Trainer(Config(**dict(settings, arch="resnet50")), device="cpu", mcfg=mcfg)
+    before = trainer.model.encoder.bn1.running_mean.clone()
+    trainer(n_epochs=1)
+    records = _records(trainer)
+    assert [r["eval_skipped"] for r in records if "eval_skipped" in r] == ["duts"]
+    assert "canvas path is for the ViT encoder" in [
+        r for r in records if "eval_skipped" in r][0]["reason"]
+    assert np.isfinite([r for r in records if "avg_loss" in r][0]["avg_loss"])
+    assert not torch.equal(trainer.model.encoder.bn1.running_mean, before)

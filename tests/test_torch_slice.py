@@ -206,8 +206,6 @@ def test_config_from_maps_pallas_attention_onto_use_flash(flash):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("arch", "resnet50"), ("use_binary_classifier", False),
-    ("learnable_pixel_decoder", True),
     ("remat", True), ("use_copy_paste", True), ("loss_every_decoder_layer", False),
     ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
     ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
