@@ -187,6 +187,30 @@ Then, after phase 16:
    its ms; ``vit_n_last_cls`` through K2 (12 launches) against the plain
    softmax.
 
+Then, after phase 20:
+
+21. the training options (ROADMAP item 6) at the live config's full width,
+   on phase 7's synthetic batches: exact accumulation (GradCache) at B=16 as
+   two micro-batches of 8, the labels repeated across them, through K2 (48
+   forward + 24 backward launches a step) and under ``use_fused_train``
+   (K3 and K4, 48 + 24 each): pass 1's features equal pass 2's, the summed
+   gradients against one B=16 step (per tensor, max error over max
+   magnitude: ``EXACT_GRAD_REL`` in bf16, ``EXACT_F32_GRAD_REL`` in f32 with
+   plain attention), the step through the plain versions (phase 7's bounds),
+   exact, averaged and one-batch step ms; remat at B=8 and B=32 (24 + 12 K2
+   launches a step), under torch's deterministic algorithms: gradients bit
+   for bit against the step without it, the step's peak device memory both
+   ways, step ms both ways; ``cli.train --async-checkpoint`` for 2 epochs
+   under the deterministic algorithms: ``latest_model.pt`` equal bit for bit
+   to the weights at the ``save`` call and to a synchronous run's (and two
+   synchronous runs equal), the training thread's ms in each checkpoint
+   call, epoch s both ways, ``--resume``; the Trainer's visualizer hook (K1,
+   12 launches a call) and the Evaluator's (K2) with PNGs where matplotlib
+   imports, else a recording visualizer, said so; ``DataLoader`` with 4
+   forked process workers after CUDA init, batches byte-equal to the thread
+   loader's, img/s both ways.  Each line carries nvidia-smi's name and
+   power limit.
+
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
 operations over the card's dense peak for their type (bf16; s8 for K8's
@@ -259,11 +283,17 @@ def block_cost(rows: int, images: int, n: int, d: int, hidden: int) -> dict:
             "w_attn": 2 * (4 * d * d + 6 * d), "w_mlp": 2 * (2 * d * hidden + 3 * d + hidden)}
 
 
+CARD = "card not checked"                 # nvidia-smi's name and power limit
+
+
 def phase(n: int, msg: str) -> None:
     print(f"[phase {n}] {msg}", flush=True)
 
 
 def card_check():
+    # cuBLAS's fixed workspace, read when its first handle is made: phase 21
+    # runs steps under torch's deterministic algorithms, which require it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -276,7 +306,9 @@ def card_check():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase(1, f"card {torch.cuda.get_device_name(0)}, capability {cap}, "
@@ -3713,6 +3745,509 @@ def model_options_check():
     return {"non_bc K2": (k2_fwd, k2_bwd), "helper K2": helper_launches}
 
 
+# ---------------------------------------------------------------- phase 21
+# The training options of ROADMAP item 6 at the live config's full width.
+EXACT_B = 16                             # two micro-batches of the live config's 8
+# per tensor, max |g - g_ref| over max |g_ref|, exact mode's two
+# micro-batches against one batch.  In bf16 the split moves single
+# roundings (cuBLAS picks its f32 kernels by M; 12 blocks and 6 decoder
+# layers carry each flip on), and a bias gradient summed over 16 x 20 query
+# rows cancels to a fraction of its terms, so the gap reaches ~13 bf16 ulps
+# (2^-8) of its largest element (first H100 run: 0.0525 with K2, 0.0422
+# with K3 + K4); in f32 (plain attention, TF32 off) it is reassociation
+EXACT_GRAD_REL, EXACT_F32_GRAD_REL = 0.15, 1e-4
+REMAT_BATCHES = (8, 32)                  # the live config's and bench.py's train batch
+ASYNC_IMAGES = 32                        # 4 steps an epoch at B=8
+LOADER_IMAGES, LOADER_WORKERS = 64, 4
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _grad_gap(got, ref):
+    """(the worst per-tensor max |got - ref| over max |ref|, its tensor)."""
+    return max((float((got[n] - ref[n]).abs().max())
+                / max(float(ref[n].abs().max()), 1e-30), n) for n in ref)
+
+
+def _timed_steps(step, batch, n: int = 3) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _step_builder(cfg, mcfg, sd):
+    """``(accum, mode) -> (model, train_step)`` from the weights ``sd``."""
+    from sod_tpu_torch.models.maskformer import MaskFormer
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    def build(accum: int = 1, mode: str = "averaged"):
+        model = MaskFormer(mcfg)
+        model.load_state_dict(sd)
+        model.cuda()
+        opt = build_optimizer(cfg, model.parameters(), n_iters_per_epoch=100)
+        return model, make_train_step(cfg, model, opt, accum_steps=accum, mode=mode)
+
+    return build
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (F.interpolate's backward without
+    atomics; cuBLAS on the fixed workspace ``card_check`` sets)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _release() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def exact_mode_check(cfg, fused_train: bool = False) -> dict:
+    """Exact accumulation at B=16 as two micro-batches of 8 with the labels
+    repeated across them (image i and i + 8 share a label, so every positive
+    pair spans the two): K2's launches (K3's and K4's under
+    ``use_fused_train``) in one step; pass 1's features against pass 2's;
+    the summed gradients against one B=16 step; the step through the plain
+    versions against it (phase 7's bounds); exact, averaged and one-batch
+    step ms."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+
+    cfg_x = dataclasses.replace(cfg, batch_size=EXACT_B, use_fused_train=fused_train)
+    mcfg = config_from(cfg_x)
+    depth = mcfg.vit.depth
+    sd = random_state_dict(MaskFormer(mcfg), cfg.seed)
+    build = _step_builder(cfg_x, mcfg, sd)
+    host = synthetic_batch(np.random.default_rng(25), EXACT_B, cfg.train_image_size,
+                           cfg.max_gt_masks)
+    host["labels"] = np.tile(np.arange(EXACT_B // 2, dtype=np.int32), 2)
+    batch = _to_cuda(host)
+    name = "use_fused_train (K3 + K4)" if fused_train else "default (K2)"
+
+    exact_model, exact = build(2, "exact")
+    seen = []
+    hook = exact_model.register_forward_hook(
+        lambda mod, args, out: seen.append((torch.is_grad_enabled(),
+                                            out["features"].detach().clone())))
+    reset_launch_counts()
+    mx = exact(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    hook.remove()
+    if [g for g, _ in seen] != [False, False, True, True]:
+        raise AssertionError(f"exact step forwards (grad enabled): {[g for g, _ in seen]}")
+    z_gap = max(float((z1 - z2).abs().max()) for (_, z1), (_, z2) in zip(seen[:2], seen[2:]))
+    g_exact = _grads(exact_model)
+    one_model, one = build(1)
+    m1 = one(batch)
+    torch.cuda.synchronize()
+    gap, worst = _grad_gap(g_exact, _grads(one_model))
+
+    plain_model, plain = build(2, "exact")
+    with (plain_fused_train() if fused_train else _PlainFlash()):
+        mp = plain(batch)
+    torch.cuda.synchronize()
+    mx, m1, mp = ({k: float(v) for k, v in m.items()} for m in (mx, m1, mp))
+    if not (all(np.isfinite(list(mx.values()))) and mx["contrastive_loss"] > 0):
+        raise AssertionError(f"exact step metrics: {mx}")
+    upd_x = torch.cat([(v.cpu() - sd[k]).flatten() for k, v in exact_model.state_dict().items()])
+    upd_p = torch.cat([(v.cpu() - sd[k]).flatten() for k, v in plain_model.state_dict().items()])
+    corr = float(np.corrcoef(upd_x.numpy(), upd_p.numpy())[0, 1])
+    loss_rel = abs(mx["loss"] - mp["loss"]) / abs(mp["loss"])
+    gnorm_rel = abs(mx["grad_norm"] - mp["grad_norm"]) / abs(mp["grad_norm"])
+
+    f32_gap = None
+    if not fused_train:
+        # the same comparison in f32 with plain attention (the kernels take bf16)
+        cfg_f = dataclasses.replace(cfg_x, compute_dtype="float32", use_pallas_attention=False)
+        build_f = _step_builder(cfg_f, config_from(cfg_f), sd)
+        (fx_model, fx), (f1_model, f1) = build_f(2, "exact"), build_f(1)
+        fx(batch)
+        f1(batch)
+        torch.cuda.synchronize()
+        f32_gap, f32_worst = _grad_gap(_grads(fx_model), _grads(f1_model))
+        del fx_model, f1_model, fx, f1
+
+    avg_model, avg = build(2, "averaged")
+    ma = {k: float(v) for k, v in avg(batch).items()}
+    times = {}
+    for label, step in (("exact", exact), ("averaged", avg), ("one batch", one)):
+        times[label] = _timed_steps(step, batch)
+    print(f"  exact step, {name}, B={EXACT_B} as 2 x {EXACT_B // 2}: loss {mx['loss']:.6g}, "
+          f"contrastive {mx['contrastive_loss']:.6g} (one batch {m1['contrastive_loss']:.6g}, "
+          f"averaged {ma['contrastive_loss']:.6g}: no positive pair inside a micro-batch); "
+          f"launches {counts}; pass 1 vs pass 2 features max_abs {z_gap:.3g}; gradients vs one "
+          f"B={EXACT_B} step: worst per-tensor max err / max {gap:.3g} ({worst})"
+          + ("" if f32_gap is None else
+             f", in f32 with plain attention {f32_gap:.3g} ({f32_worst})")
+          + f"; vs plain "
+          f"exact step loss rel {loss_rel:.3g}, grad_norm rel {gnorm_rel:.3g}, update corr "
+          f"{corr:.6f}; step ms exact {times['exact']:.1f}, averaged {times['averaged']:.1f}, "
+          f"one batch {times['one batch']:.1f} [{CARD}]", flush=True)
+    if fused_train:
+        want = {"K3 fwd": 4 * depth, "K3 bwd": 2 * depth, "K4 fwd": 4 * depth,
+                "K4 bwd": 2 * depth, "K2 fwd": 0, "K2 bwd": 0}
+    else:
+        want = {"K2 fwd": 4 * depth, "K2 bwd": 2 * depth, "K3 fwd": 0, "K4 fwd": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"exact step launches {counts}, expected {want}")
+    if z_gap != 0.0:
+        raise AssertionError(f"pass 1's features differ from pass 2's by {z_gap}")
+    if f32_gap is not None and not f32_gap <= EXACT_F32_GRAD_REL:
+        raise AssertionError(f"f32 exact gradients off the one-batch step's: {f32_gap}")
+    if not gap <= EXACT_GRAD_REL:
+        raise AssertionError(f"exact gradients off the one-batch step's: {gap} at {worst}")
+    if not (loss_rel <= STEP_LOSS_RTOL and gnorm_rel <= STEP_GNORM_RTOL
+            and corr > STEP_MIN_UPDATE_CORR):
+        raise AssertionError("the exact step disagrees with its plain versions")
+    del exact_model, one_model, plain_model, avg_model, exact, one, plain, avg
+    _release()
+    return {"launches": counts, "z_gap": z_gap, "grad_gap": gap, "f32_gap": f32_gap,
+            "ms": times}
+
+
+def remat_check(cfg) -> dict:
+    """Remat on the default path at B=8 and B=32, one step from the same
+    weights with and without it under torch's deterministic algorithms (the
+    pixel decoder's F.interpolate backward otherwise sums with atomics):
+    gradients bit for bit, K2's launches, the step's peak device memory above
+    what was resident before it; then step ms both ways with the default
+    algorithms."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+
+    out = {}
+    sd = None
+    for b in REMAT_BATCHES:
+        batch = _to_cuda(synthetic_batch(np.random.default_rng(26 + b), b,
+                                         cfg.train_image_size, cfg.max_gt_masks))
+        grads, row = {}, {}
+        for label, remat in (("off", False), ("on", True)):
+            cfg_r = dataclasses.replace(cfg, batch_size=b, remat=remat)
+            mcfg = config_from(cfg_r)
+            sd = sd or random_state_dict(MaskFormer(mcfg), cfg.seed)
+            model, step = _step_builder(cfg_r, mcfg, sd)()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with _deterministic():
+                step(batch)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() - resident
+            grads[label] = _grads(model)
+            row[label] = {"K2": (counts["K2 fwd"], counts["K2 bwd"]),
+                          "peak GiB": peak / 2 ** 30, "ms": _timed_steps(step, batch)}
+            del model, step
+            _release()
+        row["max_abs"] = max(float((grads["on"][n] - grads["off"][n]).abs().max())
+                             for n in grads["off"])
+        out[b] = row
+        del grads
+        _release()
+        print(f"  remat at B={b}: K2 launches a step off {row['off']['K2']}, on "
+              f"{row['on']['K2']}; step peak above resident {row['off']['peak GiB']:.3f} -> "
+              f"{row['on']['peak GiB']:.3f} GiB; step ms {row['off']['ms']:.1f} -> "
+              f"{row['on']['ms']:.1f}; gradients on vs off (deterministic algorithms) "
+              f"max_abs {row['max_abs']:.3g} [{CARD}]", flush=True)
+    depth = config_from(cfg).vit.depth
+    for b, row in out.items():
+        if row["on"]["K2"] != (2 * depth, depth) or row["off"]["K2"] != (depth, depth):
+            raise AssertionError(f"remat K2 launches at B={b}: {row}")
+        if row["max_abs"] != 0.0:
+            raise AssertionError(f"remat gradients at B={b} off by {row['max_abs']}")
+        if not row["on"]["peak GiB"] < row["off"]["peak GiB"]:
+            raise AssertionError(f"remat did not lower the step's peak at B={b}: {row}")
+    return out
+
+
+def async_checkpoint_check() -> dict:
+    """``cli.train --async-checkpoint`` for 2 epochs on a synthetic DUTS-TR,
+    under torch's deterministic algorithms: the file against the weights at
+    the moment ``save`` was called and against a synchronous run from the
+    same seed, beside a second synchronous run, all bit for bit; the
+    training thread's time in each checkpoint call; epoch s both ways; then
+    ``--resume --async-checkpoint`` for a third epoch."""
+    import torch
+    import yaml
+
+    from sod_tpu_torch.cli import train as cli
+    from sod_tpu_torch.train import checkpoints
+    from sod_tpu_torch.train import trainer as trainer_mod
+
+    taken, saved = [], []
+    real_async, real_sync = checkpoints.AsyncSaver.save, trainer_mod.save_checkpoint
+
+    def async_save(self, path, model, optimizer=None, **kw):
+        saved.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_async(self, path, model, optimizer, **kw)
+        taken.append(("async", time.perf_counter() - t0))
+
+    def sync_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_sync(*args, **kw)
+        taken.append(("sync", time.perf_counter() - t0))
+
+    def max_abs(a, b):
+        return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max()) for k in a)
+
+    runs = {}
+    checkpoints.AsyncSaver.save, trainer_mod.save_checkpoint = async_save, sync_save
+    try:
+        with tempfile.TemporaryDirectory() as root, _deterministic():
+            with open(CONFIG) as f:
+                settings = yaml.safe_load(f)
+            pm = write_duts(root, ASYNC_IMAGES, settings["train_image_size"])
+            for name, argv in (("sync", []), ("async", ["--async-checkpoint"]),
+                               ("sync_again", [])):
+                settings.update(dir_ckpt=os.path.join(root, name), dir_dataset=root,
+                                pseudo_masks_fp=pm, n_epochs=2)
+                fp = os.path.join(root, f"{name}.yaml")
+                with open(fp, "w") as f:
+                    yaml.safe_dump(settings, f)
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                cli.main(["--config", fp, "--device", "cuda", *argv])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                ckpt = os.path.join(root, name, os.listdir(os.path.join(root, name))[0])
+                state = checkpoints.restore_checkpoint(os.path.join(ckpt, "latest_model.pt"))
+                runs[name] = {"seconds": seconds, "state": state, "yaml": fp, "dir": ckpt,
+                              "K2": (launch_counts()["K2 fwd"], launch_counts()["K2 bwd"])}
+            # the async run's file holds the weights at its last save call
+            snap_gap = max_abs(runs["async"]["state"]["model"], saved[-1])
+            floor = max_abs(runs["sync_again"]["state"]["model"], runs["sync"]["state"]["model"])
+            gap = max_abs(runs["async"]["state"]["model"], runs["sync"]["state"]["model"])
+            equal = sum(torch.equal(runs["async"]["state"]["model"][k], v)
+                        for k, v in runs["sync"]["state"]["model"].items())
+            with open(runs["async"]["yaml"]) as f:
+                settings = yaml.safe_load(f)
+            settings["n_epochs"] = 3
+            with open(runs["async"]["yaml"], "w") as f:
+                yaml.safe_dump(settings, f)
+            cli.main(["--config", runs["async"]["yaml"], "--device", "cuda", "--resume",
+                      "--async-checkpoint"])
+            torch.cuda.synchronize()
+            with open(os.path.join(runs["async"]["dir"], "metrics.jsonl")) as f:
+                last = [json.loads(line) for line in f if "avg_loss" in line][-1]
+    finally:
+        checkpoints.AsyncSaver.save, trainer_mod.save_checkpoint = real_async, real_sync
+    steps = ASYNC_IMAGES // settings["batch_size"]
+    n_tensors = len(runs["sync"]["state"]["model"])
+    sync_ms = [t * 1e3 for k, t in taken if k == "sync"]
+    async_ms = [t * 1e3 for k, t in taken if k == "async"]
+    epoch_s = {k: runs[k]["seconds"] / 2 for k in ("sync", "async")}
+    print(f"  --async-checkpoint, 2 epochs of {steps} steps: the file against the weights "
+          f"at save max_abs {snap_gap:.3g}; against the synchronous run max_abs {gap:.3g} "
+          f"({equal} of {n_tensors} tensors equal), two synchronous runs {floor:.3g}; "
+          f"checkpoint call on the training thread sync "
+          f"{', '.join(f'{t:.1f}' for t in sync_ms)} ms, async "
+          f"{', '.join(f'{t:.1f}' for t in async_ms)} ms; epoch s sync {epoch_s['sync']:.2f}, "
+          f"async {epoch_s['async']:.2f}; --resume: epoch {last['epoch']:.0f} step "
+          f"{last['step']}; K2 launches a run {runs['async']['K2']} [{CARD}]", flush=True)
+    if snap_gap != 0.0:
+        raise AssertionError(f"the async checkpoint is not the state at save: {snap_gap}")
+    if gap != 0.0 or floor != 0.0:
+        raise AssertionError(f"async checkpoint off the synchronous run by {gap} (two "
+                             f"synchronous runs: {floor})")
+    if last["epoch"] != 3 or last["step"] != 3 * steps:
+        raise AssertionError(f"resume did not continue the run: {last}")
+    return {"snapshot_gap": snap_gap, "gap": gap, "floor": floor, "epoch_s": epoch_s,
+            "save_ms": {"sync": sync_ms, "async": async_ms}}
+
+
+class _RecordingVisualizer:
+    """Stands in for ``Visualizer`` where matplotlib does not import: checks
+    and counts the hooks' inputs."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def _check(self, masks, objectness):
+        masks = np.asarray(masks)
+        if not (np.isfinite(masks).all() and masks.min() >= 0 and masks.max() <= 1):
+            raise AssertionError("visualizer masks outside [0, 1]")
+        if objectness is not None and not np.isfinite(np.asarray(objectness)).all():
+            raise AssertionError("visualizer objectness not finite")
+        self.calls += 1
+
+    def __call__(self, epoch, it, batch, outputs=None):
+        self._check(outputs["mask_pred"], outputs["objectness"])
+
+    def eval_grid(self, image_u8, gt_mask, pred_masks, objectness, fp):
+        self._check(pred_masks, objectness)
+
+
+def visualizer_check(cfg) -> dict:
+    """The Trainer's hook (masks from ``make_eval_step``: K1, 12 launches a
+    call) over one epoch of 16 synthetic images, and the Evaluator's
+    (masks from the default path: K2's masked forward) on a 32-image
+    DUTS-TE at B=16 rendering every batch: PNGs written where matplotlib
+    imports, else a recording visualizer."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.train.evaluator import Evaluator
+    from sod_tpu_torch.train.trainer import Trainer
+    from sod_tpu_torch.utils.visualizer import Visualizer
+
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    depth = 12
+    with tempfile.TemporaryDirectory() as root:
+        pm = write_duts(root, 16, cfg.train_image_size)
+        write_duts_te(root, 32, 200, 400, seed=28)
+        tcfg = dataclasses.replace(cfg, dir_ckpt=os.path.join(root, "ckpt"),
+                                   dir_dataset=root, pseudo_masks_fp=pm)
+        vis = Visualizer(os.path.join(root, "vis")) if have_mpl else _RecordingVisualizer()
+        trainer = Trainer(tcfg, device="cuda", visualizer=vis)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer._train_epoch(1)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_counts = launch_counts()
+        train_calls = None if have_mpl else vis.calls
+        evaluator = Evaluator(trainer.model, tcfg, visualizer=vis, vis_every=1,
+                              batch_size=EVAL_B, device="cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        evaluator("duts")
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        eval_counts = launch_counts()
+        if have_mpl:
+            pngs = {d: sorted(os.listdir(os.path.join(root, "vis", d)))
+                    for d in ("01", "duts")}
+            n_train, n_eval = len(pngs["01"]), len(pngs["duts"])
+        else:
+            n_train, n_eval = train_calls, vis.calls - train_calls
+        del trainer, evaluator
+    _release()
+    how = ("matplotlib imports: PNGs written" if have_mpl else
+           "matplotlib does not import: PNG rendering not exercised, a recording "
+           "visualizer checked the hooks' inputs")
+    what = "PNGs written" if have_mpl else "calls recorded"
+    print(f"  visualizer hooks ({how}): the Trainer's epoch of 2 steps, {n_train} "
+          f"{what}, K1 launches {train_counts['K1']} "
+          f"(K2 {train_counts['K2 fwd']} + {train_counts['K2 bwd']}), "
+          f"{t_train:.2f} s; the Evaluator's 2 batches, {n_eval} {what}, K2 "
+          f"forward launches {eval_counts['K2 fwd']}, K6 {eval_counts['K6']}, "
+          f"{t_eval:.2f} s [{CARD}]", flush=True)
+    if train_counts["K1"] != 2 * depth or eval_counts["K2 fwd"] != 2 * depth:
+        raise AssertionError(f"visualizer launches: {train_counts}, {eval_counts}")
+    if (n_train, n_eval) != (2, 2):
+        raise AssertionError(f"visualizer {what}: {n_train}, {n_eval}")
+    return {"matplotlib": have_mpl, "K1": train_counts["K1"]}
+
+
+def process_loader_check(cfg) -> dict:
+    """``DataLoader(use_processes=True)`` with 4 forked workers, forked
+    after CUDA is up in this process, against the thread loader on a
+    64-image synthetic DUTS-TR: every batch byte-equal; img/s both ways."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.data.loader import DataLoader, collate_train
+    from sod_tpu_torch.train.trainer import train_dataset
+
+    torch.zeros(1, device="cuda")                      # CUDA is up before the fork
+    if not torch.cuda.is_initialized():
+        raise AssertionError("CUDA is not initialised before the fork")
+    with tempfile.TemporaryDirectory() as root:
+        pm = write_duts(root, LOADER_IMAGES, cfg.train_image_size)
+        ds = train_dataset(dataclasses.replace(cfg, dir_dataset=root, pseudo_masks_fp=pm))
+        ds.set_mode("train")
+        ds.use_data_augmentation_(True)
+        ds.train_u8, ds.seed = True, cfg.seed
+        batches, rates = {}, {}
+        for procs in (False, True):
+            loader = DataLoader(ds, batch_size=cfg.batch_size, shuffle=True,
+                                num_workers=LOADER_WORKERS, seed=cfg.seed,
+                                collate_fn=lambda s: collate_train(s, cfg.max_gt_masks,
+                                                                   cfg.batch_size),
+                                use_processes=procs)
+            loader.set_epoch(1)
+            t0 = time.perf_counter()
+            it = iter(loader)
+            batches[procs] = [next(it)]
+            t1 = time.perf_counter()
+            batches[procs] += list(it)
+            t2 = time.perf_counter()
+            rates[procs] = (LOADER_IMAGES / (t2 - t0),
+                            (LOADER_IMAGES - cfg.batch_size) / (t2 - t1), (t1 - t0) * 1e3)
+    differ = [k for a, b in zip(batches[False], batches[True]) for k in a
+              if (a[k] != b[k] if k == "filename" else not np.array_equal(a[k], b[k]))]
+    print(f"  process loader, {LOADER_WORKERS} workers forked after CUDA init: "
+          f"{len(batches[True])} batches, {'byte-equal to' if not differ else 'DIFFERENT from'} "
+          f"the thread loader's; img/s threads {rates[False][0]:.1f} (after the first "
+          f"batch {rates[False][1]:.1f}; first batch {rates[False][2]:.1f} ms), processes "
+          f"{rates[True][0]:.1f} ({rates[True][1]:.1f}; {rates[True][2]:.1f} ms) "
+          f"[{CARD}]", flush=True)
+    if differ or len(batches[True]) != len(batches[False]) or not batches[True]:
+        raise AssertionError(f"process loader batches differ: {differ}")
+    return {"img/s": rates}
+
+
+def training_options_check():
+    """Phase 21: the training options of ROADMAP item 6 at full width."""
+    from sod_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    t0 = time.perf_counter()
+    exact = exact_mode_check(cfg)
+    exact_fused = exact_mode_check(cfg, fused_train=True)
+    remat = remat_check(cfg)
+    saver = async_checkpoint_check()
+    vis = visualizer_check(cfg)
+    loader = process_loader_check(cfg)
+    k2, fused = exact["launches"], exact_fused["launches"]
+    r8, r32 = remat[8], remat[32]
+    phase(21, f"training options: exact step K2 {k2['K2 fwd']}+{k2['K2 bwd']}, fused K3 "
+              f"{fused['K3 fwd']}+{fused['K3 bwd']} K4 {fused['K4 fwd']}+{fused['K4 bwd']}, "
+              f"gradients vs one batch {exact['grad_gap']:.3g} / {exact_fused['grad_gap']:.3g}, "
+              f"{exact['ms']['exact']:.1f} ms vs averaged {exact['ms']['averaged']:.1f}; remat "
+              f"K2 {r8['on']['K2'][0]}+{r8['on']['K2'][1]}, peak {r8['off']['peak GiB']:.2f} -> "
+              f"{r8['on']['peak GiB']:.2f} GiB at B=8, {r32['off']['peak GiB']:.2f} -> "
+              f"{r32['on']['peak GiB']:.2f} GiB at B=32; async checkpoint equal to the state at "
+              f"save; visualizer {'PNGs' if vis['matplotlib'] else 'recorded'} with "
+              f"{vis['K1']} K1 launches; process loader byte-equal, "
+              f"{loader['img/s'][True][0]:.1f} vs {loader['img/s'][False][0]:.1f} img/s; "
+              f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+
+
 def main():
     card_check()
     import torch
@@ -3742,6 +4277,7 @@ def main():
     tr = fused_trainer_check()
     maskgen_check()
     model_options_check()
+    training_options_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)

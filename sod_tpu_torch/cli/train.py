@@ -2,11 +2,12 @@
 
     python -m sod_tpu_torch.cli.train --config configs/<yaml> \\
         [--seed N] [--suffix S] [--resume] [--p_state_dict ckpt.pt] [--device cuda]
-        [--gpu_id 0]
+        [--gpu_id 0] [--async-checkpoint]
 
 yaml -> Config, seeds, ``Trainer`` on one device, epochs each followed by
 the canvas evaluation of the benchmarks on disk, ``--resume`` from this
-experiment's ``latest_model.pt``.
+experiment's ``latest_model.pt``; ``--async-checkpoint`` overlaps that
+write with the next epoch and waits for it at the end.
 The mesh flags of ``sod_tpu``'s CLI are accepted and refused: the parallel
 layouts are ROADMAP item 12.
 """
@@ -19,8 +20,7 @@ from sod_tpu_torch.utils.misc import set_seeds
 
 # argparse dest -> flag, for sod_tpu's mesh flags
 _MESH_FLAGS = {"n_devices": "--n_devices", "tp": "--tp", "pp": "--pp",
-               "sp": "--sp", "fsdp": "--fsdp",
-               "async_checkpoint": "--async-checkpoint"}
+               "sp": "--sp", "fsdp": "--fsdp"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -45,7 +45,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pp", type=int, default=None)
     p.add_argument("--sp", type=int, default=None)
     p.add_argument("--fsdp", type=str, default=None, choices=["zero1", "full"])
-    p.add_argument("--async-checkpoint", action="store_true")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="overlap the per-epoch latest_model.pt write with "
+                        "the next epoch")
     return p
 
 
@@ -57,6 +59,8 @@ def main(argv=None) -> None:
                 f"{flag} is not ported to sod_tpu_torch: the port trains on one "
                 "device (ROADMAP item 12, the parallel layouts)")
     overrides = {"debug": args.debug}
+    if args.async_checkpoint:
+        overrides["async_checkpoint"] = True
     if args.seed is not None:
         overrides["seed"] = args.seed
     if args.suffix is not None:
@@ -79,6 +83,7 @@ def main(argv=None) -> None:
         start_epoch = trainer.resume()
         print(f"resumed; continuing from epoch {start_epoch}")
     trainer(cfg.n_epochs, start_epoch=start_epoch)
+    trainer.wait_for_checkpoints()
 
 
 if __name__ == "__main__":

@@ -320,3 +320,11 @@ def normalize_device(u8: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=u8.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=u8.device)
     return (u8.float() / 255.0 - mean) / std
+
+
+def denormalize(img: np.ndarray) -> np.ndarray:
+    """Inverse of ``normalize`` -> uint8 (ref base_dataset.py:38-55)."""
+    mean = np.array(IMAGENET_MEAN, np.float32)
+    std = np.array(IMAGENET_STD, np.float32)
+    out = (img * std + mean) * 255.0
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -6,16 +6,17 @@ threaded decode/augment with batch prefetch, and the padded train collate.
   padded to ``max_gt_masks`` rows with a validity mask; contrastive labels
   a stable crc32 hash of the filename mod 10000;
 * ``DataLoader``: shuffled by ``default_rng([seed, epoch])``, samples
-  fetched by a thread pool, ``prefetch_batches`` collated batches queued.
-  Single process: no index sharding and no process workers (the parallel
-  layouts are ROADMAP item 12).
+  fetched by a thread pool or, with ``use_processes``, by forked worker
+  processes, ``prefetch_batches`` collated batches queued.  No index
+  sharding over processes (multi-host, ROADMAP item 12).
 """
 from __future__ import annotations
 
+import multiprocessing as mp
 import queue
 import threading
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
@@ -72,7 +73,14 @@ class DataLoader:
                  num_workers: int = 4,
                  collate_fn: Optional[Callable[[List[dict]], dict]] = None,
                  drop_last: bool = False, seed: int = 0,
-                 prefetch_batches: int = 2):
+                 prefetch_batches: int = 2, use_processes: bool = False):
+        """:param use_processes: decode and augment in forked worker
+        processes instead of threads (the augmentations are NumPy and hold
+        the GIL, so threads stop scaling past ~2x).  The dataset reaches
+        each worker once, through the pool's initializer; only indices and
+        samples cross the pipe.  The fork may come after CUDA is up in this
+        process: ``__getitem__`` must run NumPy/PIL only, and the workers
+        run torch on one intra-op thread."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -81,6 +89,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch_batches = prefetch_batches
+        self.use_processes = use_processes
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -120,13 +129,25 @@ class DataLoader:
                     continue
             return False
 
+        def make_pool():
+            if self.use_processes:
+                return ProcessPoolExecutor(
+                    self.num_workers, mp_context=mp.get_context("fork"),
+                    initializer=_init_worker, initargs=(self.dataset,))
+            return ThreadPoolExecutor(self.num_workers)
+
+        def fetch(pool, idxs):
+            if self.use_processes:
+                return pool.map(_getitem_worker, [int(i) for i in idxs])
+            return pool.map(self.dataset.__getitem__, idxs)
+
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                with make_pool() as pool:
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, idxs))
+                        samples = list(fetch(pool, idxs))
                         if not put(self.collate_fn(samples)):
                             return
             except BaseException as e:  # noqa: BLE001
@@ -149,6 +170,25 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset):
+    """Process-pool initializer: the dataset, inherited through the fork,
+    kept as a worker global; torch (imported by the augmentations) held to
+    one intra-op thread, so no worker enters the parent's thread pool."""
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _getitem_worker(i: int) -> dict:
+    """Only the integer index crosses the pipe to the worker."""
+    return _WORKER_DATASET[i]
 
 
 _END = object()

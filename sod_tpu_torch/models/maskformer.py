@@ -47,6 +47,8 @@ class MaskFormerConfig:
     use_binary_classifier: bool = True
     learnable_pixel_decoder: bool = False  # read by no forward, as in sod_tpu
     lateral_connection: bool = False       # read by no forward, as in sod_tpu
+    return_intermediate: bool = True       # loss_every_decoder_layer; read by
+                                           # no forward, as in sod_tpu
     vit: ViTConfig = field(default_factory=vit_small)
 
     @property
@@ -60,11 +62,6 @@ class MaskFormerConfig:
 
 # (Config field, the one value the port runs, where the rest is queued)
 _LIVE_ONLY = (
-    ("remat", False, "ROADMAP item 6, block rematerialisation"),
-    ("use_copy_paste", False, "ROADMAP item 6, copy-paste augmentation"),
-    ("loss_every_decoder_layer", True,
-     "ROADMAP item 6, the last-layer-only loss"),
-    ("async_checkpoint", False, "ROADMAP item 6, AsyncSaver"),
     ("fsdp", "none", "ROADMAP item 12, parallel/fsdp.py"),
     ("mesh_data_axis", 1, "ROADMAP item 12, data parallelism"),
     ("mesh_model_axis", 1, "ROADMAP item 12, parallel/tp.py"),
@@ -76,27 +73,26 @@ _LIVE_ONLY = (
 def config_from(cfg) -> MaskFormerConfig:
     """MaskFormerConfig from the flat experiment ``Config`` (any object
     with its fields).  Raises ``NotImplementedError`` for a setting the port
-    does not run yet instead of ignoring it.  ``arch``,
-    ``use_binary_classifier``, ``learnable_pixel_decoder`` and
-    ``lateral_connection`` are carried as ``sod_tpu`` carries them;
+    does not run yet (the parallel layouts) instead of ignoring it.
+    ``arch``, ``use_binary_classifier``, ``learnable_pixel_decoder``,
+    ``lateral_connection`` and ``loss_every_decoder_layer`` (as
+    ``return_intermediate``) are carried as ``sod_tpu`` carries them;
+    ``remat`` checkpoints each encoder block in the backward;
     ``use_pallas_attention`` routes the encoder's self-attention through the
     K2 kernels, ``use_fused_mlp`` the blocks' MLP half through K4,
     ``use_fused_train`` the training blocks through K3 then K4,
     ``fused_save_acts`` picks their saved-activation variants
     (``sod_tpu/models/maskformer.py:94-98``); ``use_fused_eval`` is read by
-    the Evaluator and ``quantize`` by the inference service (as in
-    ``sod_tpu``), not by the model."""
+    the Evaluator, ``quantize`` by the inference service,
+    ``grad_accum_mode`` by the train step, ``async_checkpoint`` by the
+    Trainer and ``use_copy_paste`` by the dataset (as in ``sod_tpu``), not
+    by the model."""
     for key, live, where in _LIVE_ONLY:
         value = getattr(cfg, key, live)
         if value != live:
             raise NotImplementedError(
                 f"{key}={value!r} is not ported to sod_tpu_torch ({where}); "
                 f"the port runs {key}={live!r}")
-    if (getattr(cfg, "grad_accum_mode", "averaged") == "exact"
-            and getattr(cfg, "grad_accum_steps", 1) > 1):
-        raise NotImplementedError(
-            "grad_accum_mode='exact' is not ported to sod_tpu_torch (ROADMAP "
-            "item 6, GradCache accumulation); the port runs 'averaged'")
     return MaskFormerConfig(
         n_queries=cfg.n_queries, n_decoder_layers=cfg.n_decoder_layers,
         scale_factor=cfg.scale_factor,
@@ -104,8 +100,10 @@ def config_from(cfg) -> MaskFormerConfig:
         use_binary_classifier=getattr(cfg, "use_binary_classifier", True),
         learnable_pixel_decoder=getattr(cfg, "learnable_pixel_decoder", False),
         lateral_connection=getattr(cfg, "lateral_connection", False),
+        return_intermediate=getattr(cfg, "loss_every_decoder_layer", True),
         vit=vit_small(patch_size=cfg.patch_size,
                       use_flash=getattr(cfg, "use_pallas_attention", True),
+                      remat=getattr(cfg, "remat", False),
                       fused_mlp=getattr(cfg, "use_fused_mlp", False),
                       fused_train=getattr(cfg, "use_fused_train", False),
                       fused_save_acts=getattr(cfg, "fused_save_acts", False)))
@@ -205,7 +203,8 @@ class MaskFormer(nn.Module):
 
     def forward(self, x: torch.Tensor, fused: bool = False,
                 encoder_apply: Optional[Callable] = None,
-                train: bool = False) -> Dict[str, torch.Tensor]:
+                train: bool = False,
+                encoder_only: bool = False) -> Dict[str, torch.Tensor]:
         """:param x: [B, H, W, 3] normalized images.
         :param fused: run the ViT encoder's blocks through the fused kernel
             (the ResNet ignores it, as in ``sod_tpu``).
@@ -217,7 +216,8 @@ class MaskFormer(nn.Module):
             "var"}}`` for ``resnet.merge_bn_stats`` (no-op for the ViT).
         :return: ``mask_pred`` [B, L, Q, h, w] (sigmoid, f32),
             ``objectness`` [B, L, Q, 1] (sigmoid, f32; binary-classifier
-            head only), ``features`` [B, D]."""
+            head only), ``features`` [B, D].  With ``encoder_only``:
+            ``patch_tokens`` [B, gh, gw, D] (``sod_tpu``'s)."""
         stats: Dict = {}
         if self.cfg.arch == "vit_small":
             p = self.cfg.vit.patch_size
@@ -232,6 +232,8 @@ class MaskFormer(nn.Module):
             feats = self.linear_layer(feats)                           # [B, h, w, D]
             b, h, w, d = feats.shape
             memory, grid = feats.reshape(b, h * w, d), (h, w)
+        if encoder_only:
+            return {"patch_tokens": memory.reshape(memory.shape[0], *grid, -1)}
 
         queries = forward_transformer_decoder(self, memory)
         upsampled = forward_pixel_decoder(memory, grid, self.cfg.scale_factor)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sod_tpu_torch.ops.attention import Attention
 from sod_tpu_torch.ops.fused_attn import fused_ln_attn, fused_ln_attn_infer
@@ -44,6 +45,7 @@ class ViTConfig:
     fused_mlp: bool = False       # the block's MLP half through K4
     fused_train: bool = False     # training blocks through K3 then K4
     fused_save_acts: bool = False  # K3 keeps qkv, K4 the pre-GELU hidden
+    remat: bool = False           # recompute each block in the backward
 
     @property
     def n_pos_tokens(self) -> int:
@@ -52,12 +54,12 @@ class ViTConfig:
 
 def vit_small(patch_size: int = 8, use_flash: bool = False,
               fused_mlp: bool = False, fused_train: bool = False,
-              fused_save_acts: bool = False) -> ViTConfig:
+              fused_save_acts: bool = False, remat: bool = False) -> ViTConfig:
     """deit_small: d 384, 6 heads, 12 blocks."""
     return ViTConfig(patch_size=patch_size, embed_dim=384, n_heads=6,
                      pos_grid=224 // patch_size, use_flash=use_flash,
                      fused_mlp=fused_mlp, fused_train=fused_train,
-                     fused_save_acts=fused_save_acts)
+                     fused_save_acts=fused_save_acts, remat=remat)
 
 
 def vit_tiny(patch_size: int = 16, use_flash: bool = False) -> ViTConfig:
@@ -236,9 +238,13 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
         unfused erf-GELU blocks, as in ``sod_tpu``.
 
     Otherwise, under ``cfg.fused_train`` and without a token mask, every
-    block runs ``fused_block_train`` (K3 then K4, differentiable); with a
-    token mask the block runs unfused, as in ``sod_tpu``
-    (``vit.py:391-395``).
+    block runs ``fused_block_train`` (K3 then K4, differentiable, and
+    ``cfg.remat`` is ignored: the kernels' backward recomputes already);
+    with a token mask the block runs unfused, as in ``sod_tpu``
+    (``vit.py:391-402``).  Under ``cfg.remat`` an unfused block keeps only
+    its input for the backward and runs its forward again there
+    (``torch.utils.checkpoint``, non-reentrant): K2 under ``use_flash`` and
+    K4 under ``fused_mlp`` launch twice forward per backward.
     """
     cfg = vit.cfg
     tokens, _ = prepare_tokens(vit, x, pos_embed_override)
@@ -269,6 +275,8 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
     for blk in vit.blocks:
         if cfg.fused_train and token_mask is None:
             tokens = fused_block_train(blk, tokens, cfg)
+        elif cfg.remat and torch.is_grad_enabled():
+            tokens = checkpoint(blk, tokens, token_mask, use_reentrant=False)
         else:
             tokens = blk(tokens, token_mask)
         if all_layers:

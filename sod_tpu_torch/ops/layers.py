@@ -121,6 +121,32 @@ def mlp_apply(layers: Sequence["Linear"], x: torch.Tensor,
     return x
 
 
+
+def _drop(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+          shape) -> torch.Tensor:
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate`` and
+    scaled by its inverse; the identity when ``rate`` is 0 or no generator
+    is given (``sod_tpu``'s ``rng=None``).  Nothing calls it: the live
+    config's dropout rates are 0."""
+    return _drop(x, rate, generator, x.shape)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth per sample (ref ``vision_transformer.py:56-75``):
+    ``dropout`` with one draw per leading index.  Nothing calls it."""
+    return _drop(x, rate, generator, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()

@@ -17,8 +17,9 @@ reduction over the image's true (h, w) rectangle.  Per batch:
 
 Metrics stay on the device and are fetched once, after the last batch.
 Keys, CSV header and rows and the returned dict (with the reference's
-``pixel_accuarcy`` spelling) are ``sod_tpu``'s.  Not ported here: meshes
-(ROADMAP item 12) and the visualizer (item 6).
+``pixel_accuarcy`` spelling) are ``sod_tpu``'s.  With a ``visualizer``, the
+first image of every ``vis_every``-th batch is rendered from the last
+layer's pre-upsample masks.  Not ported here: meshes (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -111,15 +112,17 @@ class Evaluator:
 
     def __init__(self, model, cfg, mcfg: Optional[MaskFormerConfig] = None,
                  dir_dataset: Optional[str] = None, visualizer=None,
-                 debug: bool = False, batch_size: int = 16, device=None):
+                 debug: bool = False, batch_size: int = 16, device=None,
+                 vis_every: int = 250):
         """:param model: a ``MaskFormer`` (its weights are used as they are,
             its parameters are not changed).
+        :param visualizer: a ``utils.visualizer.Visualizer`` (its
+            ``eval_grid``), called every ``vis_every`` batches (ref
+            evaluator pyc 240-269 renders grids every 250 batches).
         :param device: where evaluation runs (default: the model's device)."""
-        if visualizer is not None:
-            raise NotImplementedError(
-                "the evaluation visualizer is not ported to sod_tpu_torch "
-                "(ROADMAP item 6, utils/visualizer.py)")
         self.model = model
+        self.visualizer = visualizer
+        self.vis_every = max(1, vis_every)
         self.cfg = cfg
         self.mcfg = mcfg or config_from(cfg)
         if not self.mcfg.use_binary_classifier:
@@ -180,8 +183,10 @@ class Evaluator:
         return hw
 
     def _step(self, scale_factor: int, image_u8, gt_u8, grid_sizes, sizes,
-              cost_type: str) -> Dict[str, torch.Tensor]:
-        """One canvas batch on the device: {metric: [B]}."""
+              cost_type: str, vis: bool = False):
+        """One canvas batch on the device: ({metric: [B]}, the visualizer's
+        payload or None).  ``vis``: also return the last layer's
+        pre-upsample masks as uint8 [B, Q, sG, sG] and the objectness."""
         require_vit_canvas(self.mcfg)
         compute = (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                    else torch.float32)
@@ -194,11 +199,28 @@ class Evaluator:
         gt = gt_u8.float()
         masks = out["mask_pred"][:, -1].float()                       # [B, Q, sG, sG]
         obj = out["objectness"][:, -1, :, 0].float()
+        payload = None
+        if vis:
+            payload = {"masks_u8": (masks.clamp(0.0, 1.0) * 255.0).to(torch.uint8),
+                       "objectness": obj}
         if fused:
-            return eval_batch_metrics_lowres(masks, obj, gt, sizes, cost_type)
+            return eval_batch_metrics_lowres(masks, obj, gt, sizes, cost_type), payload
         up = self.mcfg.vit.patch_size // scale_factor   # x4 at scale_factor 2
         masks = bilinear_separable(masks, masks.shape[-2] * up, masks.shape[-1] * up)
-        return eval_batch_metrics(masks, obj, gt, sizes, cost_type)
+        return eval_batch_metrics(masks, obj, gt, sizes, cost_type), payload
+
+    def _visualize(self, dataset_name: str, bi: int, batch: dict, vis: dict,
+                   scale_factor: int) -> None:
+        """Render the first image of a batch, cropped to its valid region
+        (ref evaluator pyc 240-269)."""
+        masks_u8 = vis["masks_u8"][0].cpu().numpy()                 # [Q, sG, sG]
+        obj = vis["objectness"][0].cpu().numpy()
+        h, w = (int(v) for v in batch["hw"][0])
+        gh, gw = (int(v) for v in batch["grid_sizes"][0])
+        s = scale_factor
+        preds = masks_u8[:, :s * gh, :s * gw].astype(np.float32) / 255.0
+        self.visualizer.eval_grid(batch["image"][0][:h, :w], batch["gt"][0][:h, :w],
+                                  preds, obj, os.path.join(dataset_name, f"{bi:05d}.png"))
 
     def __call__(self, dataset_name: str, dir_ckpt: Optional[str] = None,
                  img_size: Optional[int] = None, scale_factor: int = 2,
@@ -237,10 +259,14 @@ class Evaluator:
                             num_workers=cfg.num_workers, collate_fn=collate)
         pending = []                                  # (n, {metric: [B]} on device)
         with torch.inference_mode():
-            for batch in loader:
+            for bi, batch in enumerate(loader):
                 arrays = [torch.from_numpy(batch[k]).to(self.device, non_blocking=True)
                           for k in ("image", "gt", "grid_sizes", "hw")]
-                pending.append((batch["n"], self._step(scale_factor, *arrays, cost_type)))
+                vis = self.visualizer is not None and bi % self.vis_every == 0
+                metrics, payload = self._step(scale_factor, *arrays, cost_type, vis=vis)
+                pending.append((batch["n"], metrics))
+                if vis:
+                    self._visualize(dataset_name, bi, batch, payload, scale_factor)
                 if self.debug:
                     break
 

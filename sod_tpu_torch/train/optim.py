@@ -128,3 +128,17 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
         cycle_iters=n_iters_per_epoch if faithful_lr_cycle else None)
     return ClippedAdamW(params, schedule, b1=0.9, b2=0.999, eps=1e-8,
                         weight_decay=cfg.weight_decay, max_norm=1.0)
+
+
+def get_lr_scheduler(cfg, n_iters_per_epoch: int, mode: str = "poly",
+                     **kwargs) -> Callable[[int], float]:
+    """Scheduler factory (ref ``utils/misc.py:154-160``; poly only): the
+    poly schedule over ``cfg.n_epochs`` epochs with ``cfg.lr_warmup_duration``
+    warmup epochs; ``kwargs`` go to ``poly_schedule``."""
+    if mode != "poly":
+        raise ValueError(
+            f"Unsupported lr scheduler type: {mode} (currently [poly] "
+            "supported)")
+    return poly_schedule(cfg.lr, total_iters=cfg.n_epochs * n_iters_per_epoch,
+                         warmup_iters=cfg.lr_warmup_duration * n_iters_per_epoch,
+                         **kwargs)

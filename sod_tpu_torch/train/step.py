@@ -15,20 +15,34 @@ With ``use_binary_classifier=False`` the forward has no objectness, so the
 criterion takes its ``objectness is None`` branch and the step trains on
 the contrastive term alone, as ``sod_tpu``'s does.
 
-Accumulation: ``accum_steps=1``, or ``"averaged"`` over ``accum_steps``
-micro-batches (each micro loss normalised by its own valid-image count, the
-InfoNCE term over the micro-batch's negatives; gradients summed, then
-divided; the BN statistics the mean of the micro-batches', merged once).
-``"exact"`` (GradCache) is ROADMAP item 6: it raises.
+Accumulation over ``accum_steps`` micro-batches, one update:
+
+* ``"averaged"``: each micro loss normalised by its own valid-image count,
+  the InfoNCE term over the micro-batch's negatives; gradients summed, then
+  divided;
+* ``"exact"`` (GradCache, ``sod_tpu/train/step.py:217-326``): the gradient
+  of the whole batch's loss.  Pass 1 (only with a contrastive weight and
+  labels) runs every micro-batch's forward without gradients, takes the
+  pooled features ``Z`` of the whole batch and the gradient ``g_Z`` of the
+  InfoNCE term on them; pass 2 runs each micro-batch's forward again and
+  backward on ``main_sum_k / n_total + <features_k, g_Z_k>``, gradients
+  summed.  Both passes run the same forward (K2, or K3 + K4), so ``g_Z`` is
+  taken at the features that pass 2 differentiates.
+
+In both modes the BN statistics are the mean of the (pass-2)
+micro-batches', merged once after the update.
+
+``make_eval_step``: the last layer's masks and objectness, for the
+visualizer hooks.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from sod_tpu_torch.data.augment import normalize_device
-from sod_tpu_torch.losses.criterion import criterion_forward
+from sod_tpu_torch.losses.criterion import contrastive_loss, criterion_forward
 from sod_tpu_torch.models.maskformer import MaskFormer
 from sod_tpu_torch.models.resnet import merge_bn_stats
 from sod_tpu_torch.train.optim import ClippedAdamW, global_norm
@@ -48,18 +62,17 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
     if mode not in ("averaged", "exact"):
         raise ValueError(f"grad_accum mode must be 'averaged' or 'exact', "
                          f"got {mode!r}")
-    if mode == "exact" and accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_mode='exact' (GradCache accumulation) is not ported "
-            "to sod_tpu_torch (ROADMAP item 6)")
     compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                      else torch.float32)
 
-    def loss_fn(batch):
+    def forward(batch):
         x = batch["image"]
         if x.dtype == torch.uint8:
             x = normalize_device(x)
-        out = model(x.to(compute_dtype), train=True)
+        return model(x.to(compute_dtype), train=True)
+
+    def loss_fn(batch):
+        out = forward(batch)
         res = criterion_forward(
             out["mask_pred"].float(), batch["gt_masks"].float(),
             batch["gt_valid"], out.get("objectness"),
@@ -70,15 +83,75 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
             temperature=cfg.temperature)
         return res["loss"], res, out.get("batch_stats", {})
 
+    def split(batch):
+        return [{key: v.chunk(accum_steps)[k] for key, v in batch.items()}
+                for k in range(accum_steps)]
+
+    def exact_pass(batch):
+        """Both passes of the exact mode; the summed gradients land in
+        ``.grad``.  Returns (loss, diagnostics, BN statistics)."""
+        micro = split(batch)
+        img_valid = batch["gt_valid"].any(dim=1)
+        n_total = img_valid.sum().clamp(min=1).float()
+        w_c = cfg.weight_contrastive_loss
+        g_z = None
+        con_scaled = con_raw = torch.zeros((), device=img_valid.device)
+        if w_c != 0.0 and "labels" in batch:
+            # pass 1: the whole batch's features, without gradients
+            with torch.no_grad():
+                z = torch.cat([forward(mb)["features"].float() for mb in micro])
+            z.requires_grad_(True)
+            con_scaled = w_c * contrastive_loss(
+                z, batch["labels"], cfg.temperature, valid=img_valid) / n_total
+            # the guards (fewer than two valid rows) return a constant 0
+            g_z = (torch.autograd.grad(con_scaled, z)[0] if con_scaled.requires_grad
+                   else torch.zeros_like(z))
+            con_scaled = con_scaled.detach()
+            con_raw = con_scaled * n_total / w_c
+            g_z = g_z.chunk(accum_steps)
+        # pass 2: main loss + the cached feature gradient, with gradients
+        main_total = torch.zeros((), device=img_valid.device)
+        diag = {key: torch.zeros((), device=img_valid.device) for key in
+                ("avg_dice_loss", "avg_ranking_loss", "avg_classification_loss",
+                 "avg_iou")}
+        all_stats = []
+        for k, mb in enumerate(micro):
+            out = forward(mb)
+            res = criterion_forward(
+                out["mask_pred"].float(), mb["gt_masks"].float(), mb["gt_valid"],
+                out.get("objectness"),
+                use_classification_loss=not cfg.use_binary_classifier)
+            # the criterion normalises by the micro-batch's valid count
+            nk = mb["gt_valid"].any(dim=1).sum().clamp(min=1)
+            main_sum = res["avg_loss"] * nk
+            surrogate = main_sum / n_total
+            if g_z is not None:
+                surrogate = surrogate + (out["features"].float() * g_z[k]).sum()
+            surrogate.backward()                  # sums into .grad
+            main_total = main_total + main_sum.detach()
+            for key in diag:
+                diag[key] = diag[key] + res[key].detach().float() * nk
+            all_stats.append(out.get("batch_stats", {}))
+        res = {key: v / n_total for key, v in diag.items()}
+        res["avg_contrastive_loss"] = con_raw
+        return main_total / n_total + con_scaled, res, all_stats
+
+    def mean_stats(all_stats):
+        return {name: {s: torch.stack([st[name][s] for st in all_stats]).mean(0)
+                       for s in ("mean", "var")}
+                for name in all_stats[0]}
+
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        if accum_steps <= 1:
+        if accum_steps > 1 and mode == "exact":
+            loss, res, all_stats = exact_pass(batch)
+            stats = mean_stats(all_stats)
+        elif accum_steps <= 1:
             loss, res, stats = loss_fn(batch)
             loss.backward()
         else:
             losses, all_res, all_stats = [], [], []
-            for k in range(accum_steps):
-                micro = {key: v.chunk(accum_steps)[k] for key, v in batch.items()}
+            for micro in split(batch):
                 loss_k, res_k, stats_k = loss_fn(micro)
                 loss_k.backward()                 # sums into .grad
                 losses.append(loss_k.detach())
@@ -90,9 +163,7 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
                    for key in ("avg_dice_loss", "avg_ranking_loss",
                                "avg_classification_loss",
                                "avg_contrastive_loss", "avg_iou")}
-            stats = {name: {s: torch.stack([st[name][s] for st in all_stats]).mean(0)
-                            for s in ("mean", "var")}
-                     for name in all_stats[0]}
+            stats = mean_stats(all_stats)
         grad_norm = global_norm(optimizer.grads())
         optimizer.step(grad_norm)
         if stats:
@@ -106,3 +177,33 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
                 "grad_norm": grad_norm}
 
     return train_step
+
+
+def make_eval_step(cfg, model: MaskFormer, apply_fn: Optional[Callable] = None,
+                   fused: bool = True
+                   ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Build ``eval_step(image) -> {"mask_pred": [B, Q, h, w], "objectness":
+    [B, Q]}``, the last decoder layer's, both f32 (twin of ``sod_tpu``'s
+    ``make_eval_step``).  ``image``: [B, H, W, 3] uint8 (normalised on the
+    device) or normalised floats, on the model's device.
+
+    :param fused: the encoder through the fused inference path (K1), as the
+        service runs it; an f32 ``compute_dtype`` runs it unfused.
+    :param apply_fn: ``sod_tpu``'s hook for the mesh forwards (ROADMAP item
+        12): refused."""
+    if apply_fn is not None:
+        raise NotImplementedError(
+            "apply_fn is the mesh forwards' hook; the parallel layouts are "
+            "not ported to sod_tpu_torch (ROADMAP item 12)")
+    compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                     else torch.float32)
+
+    def eval_step(image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            if image.dtype == torch.uint8:
+                image = normalize_device(image)
+            out = model(image.to(compute_dtype), fused=fused)
+            return {"mask_pred": out["mask_pred"][:, -1].float(),
+                    "objectness": out["objectness"][:, -1, :, 0].float()}
+
+    return eval_step

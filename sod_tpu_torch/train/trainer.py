@@ -19,8 +19,14 @@ in ``sod_tpu``: with the non-bc head the Evaluator raises and the epoch's
 evaluation with it; with the ResNet-50 the canvas forward refuses and each
 benchmark is logged as skipped.
 
-Not ported here: meshes (ROADMAP item 12), the visualizer and async
-checkpoints (item 6).
+With ``cfg.async_checkpoint`` the ``latest_model.pt`` write overlaps the
+next epoch (``AsyncSaver``: the state is copied to the host before
+training goes on); ``wait_for_checkpoints`` blocks until it is on disk.
+With a ``visualizer``, every ``len(loader) // 10`` iterations the current
+weights' masks for the batch's first image are rendered
+(``make_eval_step``, the fused encoder K1 in bf16).
+
+Not ported here: meshes (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -36,11 +42,11 @@ from sod_tpu_torch.data.factory import get_dataset
 from sod_tpu_torch.data.loader import DataLoader, collate_train
 from sod_tpu_torch.metrics.average_meter import AverageMeter
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
-from sod_tpu_torch.train.checkpoints import restore_checkpoint, save_checkpoint
+from sod_tpu_torch.train.checkpoints import AsyncSaver, restore_checkpoint, save_checkpoint
 from sod_tpu_torch.train.evaluator import Evaluator
 from sod_tpu_torch.train.logging import MetricLogger
 from sod_tpu_torch.train.optim import build_optimizer
-from sod_tpu_torch.train.step import METRIC_KEYS, make_train_step
+from sod_tpu_torch.train.step import METRIC_KEYS, make_eval_step, make_train_step
 
 DEFAULT_BENCHMARKS = ["ecssd", "duts", "dut_omron"]
 _PRETTY = {"duts": "DUTS", "ecssd": "ECSSD", "dut_omron": "DUT-OMRON"}
@@ -61,7 +67,7 @@ def train_dataset(cfg: Config):
 class Trainer:
     def __init__(self, cfg: Config, device, state_dict=None, mcfg=None,
                  dataset=None, evaluator: Optional[Evaluator] = None,
-                 debug: bool = False):
+                 visualizer=None, debug: bool = False):
         """:param device: the one device to train on ("cuda", "cpu", ...).
         :param state_dict: initial weights in the reference layout; seeded
             random weights (``random_state_dict(cfg.seed)``) otherwise.
@@ -69,6 +75,9 @@ class Trainer:
             building one; it is handed the Trainer's model (the current
             weights) before every evaluation, as ``sod_tpu``'s Trainer hands
             an injected evaluator its ``params``.
+        :param visualizer: a ``utils.visualizer.Visualizer``, called with the
+            batch and the current weights' last-layer outputs on its first
+            image every ``len(loader) // 10`` iterations.
         After each epoch the Trainer evaluates ``cfg.benchmarks`` (default
         ECSSD, DUTS-TE and DUT-OMRON)."""
         self.cfg = cfg
@@ -77,6 +86,8 @@ class Trainer:
         self.debug = debug or cfg.debug
         self.benchmarks = cfg.benchmarks or DEFAULT_BENCHMARKS
         self.evaluator = evaluator
+        self.visualizer = visualizer
+        self._vis_step = None
 
         self.experim_name = define_experim_name(cfg)
         self.dir_ckpt = os.path.join(cfg.dir_ckpt, self.experim_name)
@@ -102,6 +113,7 @@ class Trainer:
             cfg, self.model, self.optimizer,
             accum_steps=max(1, cfg.grad_accum_steps), mode=cfg.grad_accum_mode)
 
+        self._ckpt_saver = AsyncSaver() if cfg.async_checkpoint else None
         self.logger = MetricLogger(self.dir_ckpt, name=self.experim_name)
         self.n_iters_done = 0
         self.best_scores: Dict[str, float] = {}
@@ -115,6 +127,7 @@ class Trainer:
     def resume(self, path: Optional[str] = None) -> int:
         """Restore model, optimizer and counters from a checkpoint and
         return the next epoch to run."""
+        self.wait_for_checkpoints()     # restore must see a finished write
         state = restore_checkpoint(path or self.latest_path,
                                    map_location=self.device)
         self.model.load_state_dict(state["model"])
@@ -133,6 +146,23 @@ class Trainer:
         return int(state.get("epoch", 0)) + 1
 
     # ------------------------------------------------------------------
+    def wait_for_checkpoints(self) -> None:
+        """Block until an in-flight async checkpoint write is on disk (no-op
+        under the default synchronous saves)."""
+        if self._ckpt_saver is not None:
+            self._ckpt_saver.wait()
+
+    def _visualize(self, num_epoch: int, it: int, batch: dict,
+                   arrays: Dict[str, torch.Tensor]) -> None:
+        """The visualizer hook on the batch's first image (ref trainer pyc
+        134-164)."""
+        if self._vis_step is None:
+            self._vis_step = make_eval_step(self.cfg, self.model)
+        outs = self._vis_step(arrays["image"][:1])
+        self.visualizer(num_epoch, it, batch,
+                        outputs={k: v.cpu().numpy() for k, v in outs.items()})
+
+    # ------------------------------------------------------------------
     def _train_epoch(self, num_epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         self.dataset.set_mode("train")
@@ -147,12 +177,15 @@ class Trainer:
         timer = StepTimer()
         # per-step metrics stay on the device; one fetch at epoch end
         step_metrics: list = []
-        for batch in loader:
+        vis_every = max(1, len(loader) // 10)
+        for it, batch in enumerate(loader):
             timer.tick()
             arrays = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                       for k, v in batch.items() if k != "filename"}
             step_metrics.append(self.train_step(arrays))
             self.n_iters_done += 1
+            if self.visualizer is not None and it % vis_every == 0:
+                self._visualize(num_epoch, it, batch, arrays)
             if self.debug:
                 break
 
@@ -167,9 +200,9 @@ class Trainer:
         epoch_metrics["images_per_second"] = timer.images_per_second(
             cfg.batch_size)
         self.logger.log(epoch_metrics, step=self.n_iters_done)
-        save_checkpoint(self.latest_path, self.model, self.optimizer,
-                        epoch=num_epoch, n_iters=self.n_iters_done,
-                        extra={"best_scores": dict(self.best_scores)})
+        save = self._ckpt_saver.save if self._ckpt_saver is not None else save_checkpoint
+        save(self.latest_path, self.model, self.optimizer, epoch=num_epoch,
+             n_iters=self.n_iters_done, extra={"best_scores": dict(self.best_scores)})
         return epoch_metrics
 
     # ------------------------------------------------------------------

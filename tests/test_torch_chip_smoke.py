@@ -187,3 +187,23 @@ def test_model_options_phase_is_run_and_fails_without_a_card(check):
     assert f"{check}(cfg)" in inspect.getsource(cs.model_options_check)
     with pytest.raises((RuntimeError, AssertionError)):
         getattr(cs, check)(load_config(cs.CONFIG))
+
+
+@pytest.mark.parametrize("check", ["exact_mode_check", "remat_check", "async_checkpoint_check",
+                                   "visualizer_check", "process_loader_check"])
+def test_training_options_phase_is_run_and_fails_without_a_card(check):
+    """Phase 21 (exact accumulation on K2 and on K3 + K4, remat, the async
+    checkpoint through ``cli.train``, the visualizer hooks, the process
+    loader) is part of ``main``; off the card each of its checks fails
+    instead of running on the CPU."""
+    import inspect
+
+    import chip_smoke as cs
+    from sod_tpu_torch.config import load_config
+
+    assert "training_options_check()" in inspect.getsource(cs.main)
+    source = inspect.getsource(cs.training_options_check)
+    assert f"{check}(" in source
+    args = () if check == "async_checkpoint_check" else (load_config(cs.CONFIG),)
+    with pytest.raises((RuntimeError, AssertionError)):
+        getattr(cs, check)(*args)

@@ -1,7 +1,15 @@
 """The port's host data path against ``sod_tpu.data``, byte for byte: the
 RLE codec, the train augmentations from one seeded generator, a DUTS
 train sample (float and uint8 shipping), ``collate_train`` and the
-loader's batch order, on a tiny synthetic DUTS directory."""
+loader's batch order (thread and process workers), on a tiny synthetic
+DUTS directory.
+
+Both packages have a native (C++) and a NumPy path for the augmentations,
+which differ by ulps in ``color_jitter``'s clip passes.  Each comparison
+runs both packages on one path: the one ``sod_tpu``'s library gave this
+process (its in-place ``make`` may lose a race between test processes,
+which leaves ``sod_tpu`` on NumPy), and, in
+``test_numpy_paths_are_byte_equal``, with both libraries forced off."""
 import json
 import os
 
@@ -9,6 +17,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from sod_tpu import native as jnative
 from sod_tpu.data import augment as jaug
 from sod_tpu.data.duts import DUTSDataset as JaxDUTS
 from sod_tpu.data.loader import DataLoader as JaxLoader
@@ -16,8 +25,25 @@ from sod_tpu.data.loader import collate_train as jax_collate
 from sod_tpu.ops import rle as jax_rle
 from sod_tpu_torch.data import augment as taug
 from sod_tpu_torch.data.duts import DUTSDataset
+from sod_tpu_torch import native as tnative
 from sod_tpu_torch.data.loader import DataLoader, collate_train, stable_label
 from sod_tpu_torch.ops import rle
+
+
+def _native_off(monkeypatch, module) -> None:
+    """The package's native library unavailable for this test: ``lib()``
+    returns None, so its callers take their NumPy paths."""
+    monkeypatch.setattr(module, "_lib", None)
+    monkeypatch.setattr(module, "_tried", True)
+
+
+@pytest.fixture(autouse=True)
+def same_native_path(monkeypatch):
+    """Both packages on one path: where either library is unavailable in
+    this process, the other is switched off for the test."""
+    if jnative.lib() is None or tnative.lib() is None:
+        _native_off(monkeypatch, jnative)
+        _native_off(monkeypatch, tnative)
 
 
 @pytest.fixture(scope="module")
@@ -58,6 +84,10 @@ def test_rle_round_trip_and_equality():
 
 
 def test_augmentations_are_byte_equal():
+    _check_augmentations()
+
+
+def _check_augmentations():
     r = np.random.default_rng(2)
     img = Image.fromarray(r.integers(0, 256, (37, 52, 3), dtype=np.uint8))
     masks = (r.random((2, 37, 52)) > 0.5).astype(np.uint8)
@@ -93,6 +123,10 @@ def _datasets(duts_dir, u8):
 
 @pytest.mark.parametrize("u8", [False, True])
 def test_duts_samples_and_collate_are_byte_equal(duts_dir, u8):
+    _check_duts_samples(duts_dir, u8)
+
+
+def _check_duts_samples(duts_dir, u8):
     jds, tds = _datasets(duts_dir, u8)
     assert len(jds) == len(tds) == 7
     js, ts = [jds[i] for i in range(7)], [tds[i] for i in range(7)]
@@ -108,14 +142,45 @@ def test_duts_samples_and_collate_are_byte_equal(duts_dir, u8):
 
 
 def test_loader_batch_order_is_sod_tpu_order(duts_dir):
+    _check_loader_order(duts_dir)
+
+
+def test_process_loader_batch_order_is_sod_tpu_order(duts_dir):
+    """``use_processes=True`` (forked workers, the dataset through the
+    initializer): every batch's order and bytes equal ``sod_tpu``'s loader
+    (whose process workers its own tests hold to its threads)."""
+    _check_loader_order(duts_dir, torch_procs=True)
+
+
+def _check_loader_order(duts_dir, torch_procs=False):
     jds, tds = _datasets(duts_dir, True)
     orders = []
-    for ds, cls, coll in ((jds, JaxLoader, jax_collate), (tds, DataLoader, collate_train)):
+    for ds, cls, coll, procs in ((jds, JaxLoader, jax_collate, False),
+                                 (tds, DataLoader, collate_train, torch_procs)):
         loader = cls(ds, batch_size=3, shuffle=True, num_workers=2, seed=5,
-                     collate_fn=lambda s, c=coll: c(s, 2, 3))
+                     collate_fn=lambda s, c=coll: c(s, 2, 3), use_processes=procs)
         loader.set_epoch(4)
         assert len(loader) == 3
-        orders.append([(b["filename"], b["image"]) for b in loader])
-    for (fa, ia), (fb, ib) in zip(*orders):
-        assert fa == fb
-        np.testing.assert_array_equal(ia, ib)
+        orders.append([b for b in loader])
+    assert len(orders[0]) == len(orders[1]) == 3
+    for ja, ta in zip(*orders):
+        assert ja.keys() == ta.keys()
+        assert ja["filename"] == ta["filename"]
+        for k in ja:
+            if k != "filename":
+                np.testing.assert_array_equal(ja[k], ta[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["augmentations", "duts_float", "duts_u8", "loader",
+                                  "process_loader"])
+def test_numpy_paths_are_byte_equal(duts_dir, monkeypatch, case):
+    """Both native libraries forced off: the NumPy paths compared on every
+    run, whichever path the tests above took."""
+    _native_off(monkeypatch, jnative)
+    _native_off(monkeypatch, tnative)
+    assert not jnative.available() and not tnative.available()
+    {"augmentations": _check_augmentations,
+     "duts_float": lambda: _check_duts_samples(duts_dir, False),
+     "duts_u8": lambda: _check_duts_samples(duts_dir, True),
+     "loader": lambda: _check_loader_order(duts_dir),
+     "process_loader": lambda: _check_loader_order(duts_dir, torch_procs=True)}[case]()

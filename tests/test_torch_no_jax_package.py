@@ -83,7 +83,7 @@ _TEMPLATES = os.path.join(REPO, "sod_tpu", "serving", "templates")
 # copy under sod_tpu_torch/ -> the least share of the source's lines that it
 # keeps in order (1: equal line for line)
 COPIES = {
-    "config.py": 1, "utils/__init__.py": 1, "utils/misc.py": 1,
+    "config.py": 1, "utils/__init__.py": 1, "utils/misc.py": 1, "utils/visualizer.py": 1,
     "native/sodnative.cc": 1, "native/sodimage.cc": 1,
     # differs on purpose: the docstring, and lib() with its helpers, which
     # builds from the port's sources into sod_tpu_torch/_build/

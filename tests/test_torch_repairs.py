@@ -8,7 +8,8 @@ Trainer's dataset built through ``get_dataset`` (fault F2);
 ``learnable_pixel_decoder: true``, which ``sod_tpu`` runs as the bilinear
 forward (fault F3); the service's, the Evaluator's and the Trainer's errors
 for the non-bc head, and the Trainer's skipped evaluation for the ResNet
-(fault F4)."""
+(fault F4); ``use_copy_paste: true`` and ``loss_every_decoder_layer:
+false``, which ``sod_tpu`` carries and never reads (fault F5)."""
 import dataclasses
 import json
 import os
@@ -120,7 +121,7 @@ def test_trainer_calls_the_injected_evaluator_with_its_weights(settings):
 
 def test_train_cli_calls_the_trainer(settings, tmp_path, monkeypatch, capsys):
     """``main`` hands the epochs to ``Trainer.__call__``, with the epoch
-    ``resume()`` returned."""
+    ``resume()`` returned, then waits for the last checkpoint write."""
     seen = []
 
     class _Trainer:
@@ -135,12 +136,15 @@ def test_train_cli_calls_the_trainer(settings, tmp_path, monkeypatch, capsys):
         def __call__(self, n_epochs=None, device=None, start_epoch=1):
             seen.append((n_epochs, start_epoch, self.kw["device"]))
 
+        def wait_for_checkpoints(self):
+            seen.append("wait")
+
     monkeypatch.setattr("sod_tpu_torch.train.trainer.Trainer", _Trainer)
     fp = tmp_path / "cfg.yaml"
     fp.write_text(yaml.safe_dump(dict(settings, n_epochs=5)))
     cli_train.main(["--config", str(fp), "--device", "cpu", "--gpu_id", "0"])
     cli_train.main(["--config", str(fp), "--device", "cpu", "--resume"])
-    assert seen == [(5, 1, "cpu"), (5, 3, "cpu")]
+    assert seen == [(5, 1, "cpu"), "wait", (5, 3, "cpu"), "wait"]
 
 
 @pytest.mark.parametrize("module,argv", [
@@ -311,6 +315,88 @@ def test_learnable_pixel_decoder_runs_the_bilinear_forward():
             outs.append(m(x))
     assert set(outs[0]) == {"mask_pred", "objectness", "features"}
     assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+
+
+# ------ F5: use_copy_paste and loss_every_decoder_layer are carried, not read
+
+@pytest.mark.parametrize("key,value", [("use_copy_paste", True),
+                                       ("loss_every_decoder_layer", False)])
+def test_settings_sod_tpu_carries_and_ignores_leave_the_step_as_it_is(key, value):
+    """The port refused both settings.  Now, with either flipped, the port
+    and ``sod_tpu`` each take one f32 step from shared weights (the models'
+    configs through each package's ``config_from``, cut to the tiny ViT):
+    each side's losses and parameters equal its step with the setting
+    unflipped, bit for bit, and the port's step equals ``sod_tpu``'s
+    (metrics within 1e-5 relative, updates as ``test_torch_train_step.py``'s
+    f32 steps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sod_tpu.models.maskformer import config_from as jax_config_from
+    from sod_tpu.models.maskformer import maskformer_init
+    from sod_tpu.models.vit import ViTConfig as JaxViTConfig
+    from sod_tpu.train.optim import build_optimizer as jax_build_optimizer
+    from sod_tpu.train.step import make_train_step as jax_make_train_step
+    from sod_tpu_torch.models.convert import state_dict_from_jax
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import METRIC_KEYS, make_train_step
+
+    vit = dict(patch_size=8, embed_dim=64, depth=2, n_heads=2, pos_grid=4, use_flash=False)
+    r = np.random.default_rng(11)
+    gt = np.zeros((4, 2, 32, 32), np.uint8)
+    gt[:, 0, 6:20, 4:26] = 1
+    batch = {"image": r.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8), "gt_masks": gt,
+             "gt_valid": np.array([[True, False]] * 4),
+             "labels": np.array([3, 3, 8, 8], np.int32)}
+    live = Config(batch_size=4, lr=1e-3, n_epochs=2, compute_dtype="float32")
+    runs = {}
+    for name, cfg in (("live", live), ("flipped", dataclasses.replace(live, **{key: value}))):
+        jcfg = dataclasses.replace(jax_config_from(cfg), n_queries=4, n_decoder_layers=2,
+                                   vit=JaxViTConfig(**vit))
+        tcfg = dataclasses.replace(config_from(cfg), n_queries=4, n_decoder_layers=2,
+                                   vit=ViTConfig(**vit))
+        assert jcfg.return_intermediate == tcfg.return_intermediate == \
+            cfg.loss_every_decoder_layer
+        params = maskformer_init(jax.random.key(0), jcfg)
+        old = state_dict_from_jax(jax.tree.map(np.asarray, params))
+        model = MaskFormer(tcfg)
+        model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in old.items()})
+        tx = jax_build_optimizer(cfg, 2)
+        params, _, jm = jax_make_train_step(cfg, tx, jcfg)(
+            params, tx.init(params), {k: jnp.asarray(v) for k, v in batch.items()})
+        tm = make_train_step(cfg, model, build_optimizer(cfg, model.parameters(), 2))(
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+        new = state_dict_from_jax(jax.tree.map(np.asarray, params))
+        runs[name] = ({k: float(jm[k]) for k in METRIC_KEYS},
+                      {k: new[k] - old[k] for k in new},
+                      {k: float(tm[k]) for k in METRIC_KEYS},
+                      {k: v.numpy() - old[k] for k, v in model.state_dict().items()})
+    (jm, ju, tm, tu), flipped = runs["live"], runs["flipped"]
+    assert flipped[0] == jm and flipped[2] == tm
+    for k in ju:
+        np.testing.assert_array_equal(flipped[1][k], ju[k], err_msg=k)
+        np.testing.assert_array_equal(flipped[3][k], tu[k], err_msg=k)
+        np.testing.assert_allclose(tu[k], ju[k], atol=1e-5, rtol=1e-3, err_msg=k)
+    for k in METRIC_KEYS:
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=1e-6, err_msg=k)
+    assert tm["contrastive_loss"] > 0
+
+
+def test_use_copy_paste_reaches_the_dataset_and_is_not_read(settings):
+    """As in ``sod_tpu``: ``DUTSDataset`` stores it and samples the same."""
+    from sod_tpu_torch.train.trainer import train_dataset
+
+    samples = []
+    for flag in (False, True):
+        ds = train_dataset(Config(**settings, use_copy_paste=flag))
+        assert ds.use_copy_paste is flag
+        ds.set_mode("train")
+        ds.seed, ds.epoch = 1, 1
+        samples.append(ds[2])
+    assert samples[0].keys() == samples[1].keys()
+    for k in samples[0]:
+        np.testing.assert_array_equal(samples[0][k], samples[1][k], err_msg=k)
 
 
 # ------------------ F4: the non-bc head's errors are sod_tpu's, and its Trainer

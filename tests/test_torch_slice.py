@@ -210,10 +210,26 @@ def test_config_from_maps_pallas_attention_onto_use_flash(flash):
     ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
     ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
 def test_config_from_refuses_settings_it_does_not_port(key, value):
+    """Refused: the parallel layouts (ROADMAP item 12).  Ported, so
+    accepted as ``sod_tpu``'s ``config_from`` takes them: ``remat`` carried
+    into ``ViTConfig``, ``loss_every_decoder_layer`` into
+    ``return_intermediate`` (read by no forward), and ``use_copy_paste`` /
+    ``async_checkpoint``, read by the dataset and the Trainer, leave the
+    model's config as it is."""
     cfg = _Cfg()
     setattr(cfg, key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from(cfg)
+    if key.startswith(("fsdp", "mesh_")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            config_from(cfg)
+        return
+    mcfg, live = config_from(cfg), config_from(_Cfg())
+    carried = {"remat": mcfg.vit.remat,
+               "loss_every_decoder_layer": mcfg.return_intermediate}
+    if key in carried:
+        assert carried[key] == value
+        assert mcfg != live
+    else:
+        assert mcfg == live
 
 
 @pytest.mark.parametrize("key,field", [
@@ -248,9 +264,10 @@ def test_config_from_leaves_quantize_to_the_service(quantize):
 
 
 def test_config_from_refuses_exact_accumulation():
-    cfg = _Cfg()
-    cfg.grad_accum_mode, cfg.grad_accum_steps = "exact", 2
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        config_from(cfg)
-    cfg.grad_accum_steps = 1            # one micro-batch: nothing to refuse
-    config_from(cfg)
+    """Nothing left to refuse: exact accumulation (GradCache) is a setting
+    of the train step, so ``config_from`` builds the live model for it, at
+    any number of micro-batches."""
+    for steps in (1, 2):
+        cfg = _Cfg()
+        cfg.grad_accum_mode, cfg.grad_accum_steps = "exact", steps
+        assert config_from(cfg) == config_from(_Cfg())

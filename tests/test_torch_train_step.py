@@ -57,7 +57,7 @@ from sod_tpu.models.vit import ViTConfig as JaxViTConfig
 from sod_tpu.train.optim import build_optimizer as jax_build_optimizer
 from sod_tpu.train.step import make_train_step as jax_make_train_step
 from sod_tpu_torch.models.convert import state_dict_from_jax
-from sod_tpu_torch.models.maskformer import MaskFormer, MaskFormerConfig
+from sod_tpu_torch.models.maskformer import MaskFormer, MaskFormerConfig, random_state_dict
 from sod_tpu_torch.models.vit import ViTConfig
 from sod_tpu_torch.ops import flash_attention as fa
 from sod_tpu_torch.train.optim import build_optimizer
@@ -207,8 +207,16 @@ def test_averaged_accumulation_matches_sod_tpu(interpret_k2):
 
 
 def test_exact_accumulation_is_refused():
+    """Refused only as ``sod_tpu`` refuses it: an unknown mode raises its
+    ``ValueError``; ``"exact"`` builds a step that trains (its values are
+    held in ``tests/test_torch_train_options.py``)."""
     model = MaskFormer(TCFG)
+    model.load_state_dict(random_state_dict(model, 0))
     cfg = _cfg("float32", accum=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        make_train_step(cfg, model, build_optimizer(cfg, model.parameters(), 2),
-                        accum_steps=2, mode="exact")
+    opt = build_optimizer(cfg, model.parameters(), 2)
+    with pytest.raises(ValueError, match="'averaged' or 'exact'"):
+        make_train_step(cfg, model, opt, accum_steps=2, mode="gradcache")
+    step = make_train_step(cfg, model, opt, accum_steps=2, mode="exact")
+    metrics = step({k: torch.from_numpy(v) for k, v in _batch(8).items()})
+    assert all(np.isfinite(float(metrics[k])) for k in METRIC_KEYS)
+    assert float(metrics["contrastive_loss"]) > 0 and opt.count == 1

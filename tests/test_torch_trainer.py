@@ -106,10 +106,33 @@ def test_cli_trains_and_resumes(workspace, capsys, two_threads):
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"],
                                    ["--pp", "2"], ["--sp", "2"],
                                    ["--fsdp", "zero1"], ["--async-checkpoint"]])
-def test_cli_refuses_mesh_flags(workspace, flags):
+def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
+    """The mesh flags raise (ROADMAP item 12).  ``--async-checkpoint`` is not
+    one of them: it sets ``async_checkpoint`` for the Trainer, and the CLI
+    waits for the last write before it returns
+    (``sod_tpu/cli/train.py:79-80, 148``)."""
     _, fp = workspace
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        cli.main(["--config", fp, "--device", "cpu", *flags])
+    if flags != ["--async-checkpoint"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            cli.main(["--config", fp, "--device", "cpu", *flags])
+        return
+    calls = []
+
+    class Recording:
+        def __init__(self, cfg, **kw):
+            calls.append(("init", cfg.async_checkpoint))
+            self.dir_ckpt = cfg.dir_ckpt
+
+        def __call__(self, n_epochs, start_epoch=1):
+            calls.append(("train", n_epochs))
+
+        def wait_for_checkpoints(self):
+            calls.append(("wait",))
+
+    import sod_tpu_torch.train.trainer as trainer_mod
+    monkeypatch.setattr(trainer_mod, "Trainer", Recording)
+    cli.main(["--config", fp, "--device", "cpu", *flags])
+    assert calls == [("init", True), ("train", 1), ("wait",)]
 
 
 def test_cli_imports_no_jax():
