@@ -211,6 +211,24 @@ Then, after phase 20:
    loader's, img/s both ways.  Each line carries nvidia-smi's name and
    power limit.
 
+Then, after phase 21:
+
+22. the data mesh (ROADMAP item 12a) at the live config's full width, one
+   rank over NCCL with every collective called (``make_mesh`` beyond the
+   cards raises first): (a) two default steps (12 + 12 K2 launches a step),
+   (b) two ``use_fused_train`` steps under ``fsdp: zero1`` (12 + 12 of K3
+   and of K4 a step) and (c) two ``fsdp: full`` steps on the plain path,
+   (b) and (c) sharded by the specs of two ranks so that the
+   reduce-scatter and the all-gathers run; each against the same steps
+   with no mesh under torch's deterministic algorithms, weights, moments
+   and metrics within ``MESH_MAX_ABS``; (d) the Evaluator on 12 images at
+   B=8 (K2 masked and K6 launches counted), its metrics equal to the run
+   with no mesh; (e) ``MaskGenerator`` on 6 images at B=4, its JSON
+   byte-equal to the run with no mesh; (g) the rank's rows of a synthetic
+   DUTS-TR through ``DataLoader`` workers forked after NCCL is up, byte-equal
+   to the thread loader's; (f) the default step's ms with and without the
+   mesh, in turns.
+
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
 operations over the card's dense peak for their type (bf16; s8 for K8's
@@ -4247,6 +4265,254 @@ def training_options_check():
               f"{loader['img/s'][True][0]:.1f} vs {loader['img/s'][False][0]:.1f} img/s; "
               f"{time.perf_counter() - t0:.1f} s [{CARD}]")
 
+# phase 22: the data mesh at a world size of 1 over NCCL.  The mesh step
+# against the step with no mesh from the same weights and batch, both under
+# torch's deterministic algorithms: equal bit for bit is expected (the
+# all-reduce of one rank returns its input), and the largest difference is
+# printed and held to MESH_MAX_ABS
+MESH_MAX_ABS = 0.0
+MESH_EVAL_IMAGES, MESH_EVAL_B, MESH_MASKGEN_IMAGES, MESH_MASKGEN_B = 12, 8, 6, 4
+MESH_TIMED_STEPS, MESH_ROUNDS, MESH_PROFILED_STEPS = 5, 3, 3
+
+
+def _mesh_pair(cfg, sd, batch, mesh, level: str, n_steps: int = 2):
+    """``n_steps`` steps from ``sd`` with no mesh and on ``mesh`` under
+    ``level`` (sharded by the specs of 2 ranks): per run its metrics, its
+    weights and moments after the steps, and the launches of the mesh run."""
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from
+    from sod_tpu_torch.parallel import fsdp_specs, shard_batch
+    from sod_tpu_torch.parallel.fsdp import StateLayout
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    mcfg = config_from(cfg)
+    out = {}
+    for name in ("no mesh", "mesh"):
+        model = MaskFormer(mcfg)
+        model.load_state_dict(sd)
+        model.cuda()
+        layout = None
+        if name == "mesh":
+            layout = StateLayout(model, mesh, level, specs=fsdp_specs(model, mesh, n=2))
+        opt = build_optimizer(cfg, model.parameters() if layout is None else layout.tensors,
+                              n_iters_per_epoch=100)
+        step = make_train_step(cfg, model, opt, layout=layout)
+        local = shard_batch(batch, mesh) if layout is not None else batch
+        reset_launch_counts()
+        with _deterministic():
+            for _ in range(n_steps):
+                metrics = step(local)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if layout is None:
+            state, opt_state = model.state_dict(), opt.state_dict()
+        else:
+            state, opt_state = layout.full_state(opt)
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
+                     "state": {k: v.detach().clone() for k, v in state.items()},
+                     "moments": opt_state["mu"] + opt_state["nu"], "step": step,
+                     "batch": local, "sharded": 0 if layout is None else len(layout.sharded)}
+        del model, opt
+    a, b = out["no mesh"], out["mesh"]
+    gap = max([float((a["state"][k].float() - b["state"][k].float()).abs().max())
+               for k in a["state"]]
+              + [float((x - y).abs().max()) for x, y in zip(a["moments"], b["moments"])]
+              + [abs(a["metrics"][k] - b["metrics"][k]) for k in a["metrics"]])
+    return out, gap
+
+
+def data_mesh_check():
+    """Phase 22: the data mesh (ROADMAP item 12a) on the card, one rank over
+    NCCL, every collective called, each part against the path with no mesh
+    in this call."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from sod_tpu_torch.config import load_config
+    from sod_tpu_torch.data.mask_generator import MaskGenerator
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.parallel import make_mesh
+    from sod_tpu_torch.parallel.mesh import device_limit
+    from sod_tpu_torch.train.evaluator import Evaluator
+
+    t0 = time.perf_counter()
+    try:
+        make_mesh(device_limit("cuda") + 1, "cuda")
+        raise AssertionError("make_mesh beyond the cards did not raise")
+    except ValueError as e:
+        print(f"  make_mesh({device_limit('cuda') + 1}): ValueError {e}", flush=True)
+    mesh = make_mesh(1, "cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the mesh runs {dist.get_backend()}, not NCCL")
+    print(f"  mesh {mesh}, backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}", flush=True)
+    report = {}
+    try:
+        base = load_config(CONFIG)
+        depth = config_from(base).vit.depth
+        sd = random_state_dict(MaskFormer(config_from(base)), base.seed)
+        batch = _to_cuda(synthetic_batch(np.random.default_rng(22), base.batch_size,
+                                         base.train_image_size, base.max_gt_masks))
+        parts = {
+            "a default step": (base, "none", {"K2 fwd": 2 * depth, "K2 bwd": 2 * depth}),
+            "b use_fused_train, zero1": (
+                base.replace(use_fused_train=True, fsdp="zero1"), "zero1",
+                {"K3 fwd": 2 * depth, "K3 bwd": 2 * depth, "K4 fwd": 2 * depth,
+                 "K4 bwd": 2 * depth}),
+            "c fsdp full, plain path": (base.replace(use_pallas_attention=False, fsdp="full"),
+                                        "full", {})}
+        default_runs = None
+        for part, (cfg, level, want) in parts.items():
+            runs, gap = _mesh_pair(cfg, sd, batch, mesh, level)
+            got = runs["mesh"]["counts"]
+            m = runs["mesh"]["metrics"]
+            print(f"  ({part}) 2 steps at B={cfg.batch_size}: launches {got} (expected {want}), "
+                  f"{runs['mesh']['sharded']} leaves through the reduce-scatter; mesh vs no "
+                  f"mesh max_abs {gap:.3g} over weights, moments and metrics; loss "
+                  f"{m['loss']:.6g}, grad_norm {m['grad_norm']:.6g} [{CARD}]", flush=True)
+            if got != want or runs["no mesh"]["counts"] != want:
+                raise AssertionError(f"({part}) launches {got} / no mesh "
+                                     f"{runs['no mesh']['counts']}, expected {want}")
+            if gap > MESH_MAX_ABS or not all(np.isfinite(list(m.values()))):
+                raise AssertionError(f"({part}) the mesh step differs from the step "
+                                     f"with no mesh by {gap}")
+            report[part] = {"launches": got, "max_abs": gap}
+            if level == "none":
+                default_runs = runs
+            _release()
+
+        # (d) the Evaluator: the default path's K2 masked forward and K6
+        with tempfile.TemporaryDirectory() as root:
+            write_duts_te(root, MESH_EVAL_IMAGES, EVAL_SIDE // 2, EVAL_SIDE, 22)
+            cfg = base.replace(dir_dataset=root)
+            model = MaskFormer(config_from(cfg))
+            model.load_state_dict(sd)
+            model.cuda()
+            res = {}
+            n_batches = -(-MESH_EVAL_IMAGES // MESH_EVAL_B)
+            for name, m in (("no mesh", None), ("mesh", mesh)):
+                ev = Evaluator(model, cfg, config_from(cfg), batch_size=MESH_EVAL_B,
+                               device="cuda", mesh=m)
+                reset_launch_counts()
+                res[name] = ev("duts")
+                torch.cuda.synchronize()
+                res[name + " counts"] = {k: v for k, v in launch_counts().items() if v}
+            want = {"K2 fwd": depth * n_batches, "K6": n_batches}
+            gap = max(abs(res["mesh"][k] - res["no mesh"][k]) for k in res["no mesh"])
+            print(f"  (d) Evaluator, {MESH_EVAL_IMAGES} images at B={MESH_EVAL_B}: launches "
+                  f"{res['mesh counts']} (expected {want}); 14 metric means, mesh vs no mesh "
+                  f"max_abs {gap:.3g}; iou {res['mesh']['iou']:.6g} [{CARD}]", flush=True)
+            if res["mesh counts"] != want or res["no mesh counts"] != want or gap > 0:
+                raise AssertionError("(d) the Evaluator on the mesh differs")
+            report["d evaluator"] = {"launches": res["mesh counts"], "max_abs": gap}
+            del model
+            _release()
+
+        # (e) MaskGenerator: rank 0's JSON, the labels gathered
+        with tempfile.TemporaryDirectory() as root:
+            paths = write_maskgen_images(root, MESH_MASKGEN_IMAGES, seed=22)
+            js = {}
+            for name, m in (("no mesh", None), ("mesh", mesh)):
+                js[name] = json.dumps(MaskGenerator(device="cuda", batch_size=MESH_MASKGEN_B,
+                                                    mesh=m)(paths))
+            same = js["mesh"] == js["no mesh"]
+            print(f"  (e) MaskGenerator on {MESH_MASKGEN_IMAGES} images at B={MESH_MASKGEN_B} "
+                  f"(the last batch wrap-padded): RLE JSON of {len(js['mesh'])} bytes, "
+                  f"{'byte-equal to' if same else 'DIFFERENT from'} the run with no mesh",
+                  flush=True)
+            if not same:
+                raise AssertionError("(e) MaskGenerator's JSON differs on the mesh")
+            report["e maskgen"] = {"bytes": len(js["mesh"])}
+            _release()
+
+        # (g) the rank's rows through workers forked after NCCL is up: a
+        # worker that touched CUDA would raise in the fork
+        from sod_tpu_torch.data.loader import DataLoader, collate_train
+        from sod_tpu_torch.parallel import batch_sharding
+        from sod_tpu_torch.train.trainer import train_dataset
+
+        with tempfile.TemporaryDirectory() as root:
+            pm = write_duts(root, 2 * base.batch_size, base.train_image_size)
+            ds = train_dataset(dataclasses.replace(base, dir_dataset=root, pseudo_masks_fp=pm))
+            ds.set_mode("train")
+            ds.use_data_augmentation_(True)
+            ds.train_u8, ds.seed = True, base.seed
+            got = {}
+            for procs in (False, True):
+                loader = DataLoader(ds, batch_size=base.batch_size, shuffle=True,
+                                    num_workers=LOADER_WORKERS, seed=base.seed,
+                                    rows=batch_sharding(mesh, base.batch_size),
+                                    collate_fn=lambda b: collate_train(b, base.max_gt_masks),
+                                    use_processes=procs)
+                loader.set_epoch(1)
+                got[procs] = list(loader)
+        same = len(got[True]) == len(got[False]) == 2 and all(
+            np.array_equal(a[k], b[k]) if k != "filename" else a[k] == b[k]
+            for a, b in zip(got[False], got[True]) for k in a)
+        print(f"  (g) the rank's rows of {len(got[True])} batches through {LOADER_WORKERS} "
+              f"workers forked after NCCL init: {'byte-equal to' if same else 'DIFFERENT from'} "
+              f"the thread loader's", flush=True)
+        if not same:
+            raise AssertionError("(g) the process loader's rows differ")
+
+        # (f) step ms with and without the mesh, in turns
+        times = {"no mesh": [], "mesh": []}
+        for _ in range(MESH_ROUNDS):
+            for name in ("no mesh", "mesh"):
+                run = default_runs[name]
+                times[name].append(_timed_steps(run["step"], run["batch"], MESH_TIMED_STEPS))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"  (f) default step at B={base.batch_size}, {MESH_ROUNDS} rounds of "
+              f"{MESH_TIMED_STEPS} in turns: no mesh {med['no mesh']:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in times['no mesh'])}), mesh "
+              f"{med['mesh']:.3f} ms ({', '.join(f'{t:.3f}' for t in times['mesh'])}) "
+              f"[{CARD}]", flush=True)
+        # the same steps profiled: device busy ms and kernels a step, and
+        # the host operators whose self time grows most on the mesh
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        cpu = {}
+        for name in ("no mesh", "mesh"):
+            run = default_runs[name]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(MESH_PROFILED_STEPS):
+                    run["step"](run["batch"])
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+            med[name + " busy"] = (sum(e.self_device_time_total for e in kernels) / 1e3
+                                   / MESH_PROFILED_STEPS)
+            med[name + " kernels"] = sum(e.count for e in kernels) / MESH_PROFILED_STEPS
+            cpu[name] = {e.key: e.self_cpu_time_total / 1e3 / MESH_PROFILED_STEPS
+                         for e in events if e.device_type == DeviceType.CPU}
+        grown = sorted(((cpu["mesh"].get(k, 0.0) - cpu["no mesh"].get(k, 0.0), k)
+                        for k in set(cpu["mesh"]) | set(cpu["no mesh"])), reverse=True)[:3]
+        print(f"  (f) profiled, {MESH_PROFILED_STEPS} steps each: device busy "
+              f"{med['no mesh busy']:.3f} ms a step with no mesh, {med['mesh busy']:.3f} on "
+              f"the mesh; kernels a step {med['no mesh kernels']:.0f} and "
+              f"{med['mesh kernels']:.0f}; host self ms a step grown most on the mesh: "
+              + ", ".join(f"{k[:40]} {d:+.3f}" for d, k in grown) + f" [{CARD}]", flush=True)
+        report["f step ms"] = med
+    finally:
+        dist.destroy_process_group()
+    a, b = report["a default step"]["launches"], report["b use_fused_train, zero1"]["launches"]
+    phase(22, f"data mesh on the card (1 rank, NCCL): default step K2 {a['K2 fwd'] // 2}+"
+              f"{a['K2 bwd'] // 2} a step, fused zero1 K3 {b['K3 fwd'] // 2}+{b['K3 bwd'] // 2} "
+              f"K4 {b['K4 fwd'] // 2}+{b['K4 bwd'] // 2}, fsdp full on the plain path, each "
+              f"equal to the step with no mesh (max_abs "
+              f"{max(r['max_abs'] for k, r in report.items() if 'max_abs' in r):.3g}); "
+              f"Evaluator metrics equal ({report['d evaluator']['launches']}); MaskGenerator "
+              f"JSON byte-equal; step {report['f step ms']['mesh']:.1f} ms vs "
+              f"{report['f step ms']['no mesh']:.1f} with no mesh; "
+              f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    return report
+
 
 def main():
     card_check()
@@ -4278,6 +4544,7 @@ def main():
     maskgen_check()
     model_options_check()
     training_options_check()
+    data_mesh_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)

@@ -9,14 +9,17 @@ yaml -> Config, seeds, the model (weights from a ``.pt`` state dict in the
 reference layout or a checkpoint of the port's Trainer, else seeded random
 weights; an orbax checkpoint directory is refused, as in the service), one
 ``Evaluator`` run on one device; prints the metric dict and writes the
-per-image CSV under ``{dir_root}/eval/{experiment}``.  The mesh
-flags of ``sod_tpu``'s CLI are accepted and refused: the parallel layouts
-are ROADMAP item 12.
+per-image CSV under ``{dir_root}/eval/{experiment}``.  ``--n_devices N``
+above 1 spawns N data-parallel ranks (rank r on ``cuda:r`` over NCCL, or on
+the CPU over gloo), each running its rows of every batch; rank 0 prints and
+writes.  ``--tp`` and ``--sp`` (the model-sharding layouts) are refused:
+ROADMAP item 12b.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from sod_tpu_torch.config import define_experim_name, load_config
 from sod_tpu_torch.utils.misc import set_seeds
@@ -45,21 +48,42 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--debug", "-d", action="store_true",
                    help="stop after one batch")
     p.add_argument("--device", type=str, default="cuda",
-                   help="the one device to evaluate on")
-    # sod_tpu's mesh flags: refused (ROADMAP item 12)
-    p.add_argument("--n_devices", type=int, default=None)
+                   help="the device to evaluate on (rank r of --n_devices on cuda:r)")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel ranks (default: one); batch_size must "
+                        "divide evenly")
+    # sod_tpu's model-sharding flags: refused (ROADMAP item 12b)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     return p
 
 
-def main(argv=None) -> dict:
+def _rank_main(rank: int, argv) -> None:
+    """One spawned rank of ``--n_devices``."""
+    from sod_tpu_torch.parallel.mesh import make_mesh, rank_device
+
     args = build_argparser().parse_args(argv)
-    for flag in ("n_devices", "tp", "sp"):
-        if (getattr(args, flag) or 1) > 1:
+    device = rank_device(args.device, rank)
+    _evaluate(args, device, make_mesh(args.n_devices, device))
+
+
+def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_argparser().parse_args(argv)
+    for flag in ("tp", "sp"):
+        if getattr(args, flag) > 1:
             raise NotImplementedError(
-                f"--{flag} is not ported to sod_tpu_torch: the port evaluates "
-                "on one device (ROADMAP item 12, the parallel layouts)")
+                f"--{flag} is not ported to sod_tpu_torch: the model-sharding "
+                "layouts are ROADMAP item 12b")
+    if (args.n_devices or 1) > 1:
+        from sod_tpu_torch.parallel.mesh import spawn_cli
+
+        spawn_cli(_rank_main, argv, args.n_devices, args.device)
+        return {}
+    return _evaluate(args, args.device)
+
+
+def _evaluate(args, device: str, mesh=None) -> dict:
     cfg = load_config(args.config, {"seed": args.seed, "suffix": args.suffix})
     set_seeds(cfg.seed)
 
@@ -67,6 +91,7 @@ def main(argv=None) -> dict:
 
     from sod_tpu_torch.models.convert import load_torch_state_dict, require_torch_checkpoint
     from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.parallel.mesh import is_main
     from sod_tpu_torch.train.evaluator import Evaluator
 
     mcfg = config_from(cfg)
@@ -78,15 +103,16 @@ def main(argv=None) -> dict:
     else:
         print("No weights given — evaluating a randomly initialised model.")
         model.load_state_dict(random_state_dict(model, cfg.seed))
-    model.to(torch.device(args.device))
+    model.to(torch.device(device))
 
     evaluator = Evaluator(model, cfg, mcfg, batch_size=args.batch_size,
-                          debug=args.debug, device=args.device)
+                          debug=args.debug, device=device, mesh=mesh)
     metrics = evaluator(dataset_name=args.dataset_name,
                         dir_ckpt=f"{args.dir_root}/eval/{define_experim_name(cfg)}",
                         batch_size=args.batch_size, cost_type=args.cost_type,
                         scale_factor=args.scale_factor)
-    print(json.dumps(metrics, indent=2))
+    if is_main(mesh):
+        print(json.dumps(metrics, indent=2))
     return metrics
 
 

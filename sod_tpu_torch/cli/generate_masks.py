@@ -9,14 +9,16 @@
 Writes ``{filename: COCO RLE}`` JSON.  Runs on the card unless ``--device``
 names another.  Backbones without a checkpoint get seeded random weights
 (nothing is downloaded).  ``--use_gpu`` and ``--gpu_id`` are the
-reference's and unused; ``--n_devices`` above 1 is refused until ROADMAP
-item 12 (the parallel layouts).
+reference's and unused.  ``--n_devices N`` above 1 spawns N data-parallel
+ranks (rank r on ``cuda:r`` over NCCL, or on the CPU over gloo) that split
+each batch's images; rank 0 writes the JSON.
 """
 from __future__ import annotations
 
 import argparse
 import glob
 import json
+import sys
 
 from sod_tpu_torch.utils.misc import set_seeds
 
@@ -41,21 +43,36 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--use_gpu", type=bool, default=True)
     p.add_argument("--gpu_id", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
-                   help="the one device to generate on")
+                   help="the device to generate on (rank r of --n_devices on cuda:r)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="refused above 1: the parallel layouts are ROADMAP item 12")
+                   help="data-parallel ranks splitting each batch (default: one)")
     p.add_argument("--dino_ckpt", type=str, default=None)
     p.add_argument("--mocov2_ckpt", type=str, default=None)
     p.add_argument("--swav_ckpt", type=str, default=None)
     return p
 
 
+def _rank_main(rank: int, argv) -> None:
+    """One spawned rank of ``--n_devices``."""
+    from sod_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+    args = build_argparser().parse_args(argv)
+    device = rank_device(args.device, rank)
+    _generate(args, device, make_mesh(args.n_devices, device))
+
+
 def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     if (args.n_devices or 1) > 1:
-        raise NotImplementedError(
-            "--n_devices is not ported to sod_tpu_torch: the port generates "
-            "masks on one device (ROADMAP item 12, the parallel layouts)")
+        from sod_tpu_torch.parallel.mesh import spawn_cli
+
+        spawn_cli(_rank_main, argv, args.n_devices, args.device)
+        return {}
+    return _generate(args, args.device)
+
+
+def _generate(args, device: str, mesh=None) -> dict:
     set_seeds(args.seed)
 
     paths = []
@@ -78,17 +95,19 @@ def main(argv=None) -> dict:
             print(f"{ft} weights loaded from {ckpt}")
 
     from sod_tpu_torch.data.mask_generator import MaskGenerator
+    from sod_tpu_torch.parallel.mesh import is_main
 
     gen = MaskGenerator(
         cluster_sizes=args.cluster_sizes, cluster_type=args.cluster_type,
-        feature_types=args.feature_types, device=args.device,
+        feature_types=args.feature_types, device=device,
         patch_size=args.patch_size, image_size=args.image_size,
         scale_factor=args.scale_factor, batch_size=args.batch_size,
-        seed=args.seed, params=params)
+        seed=args.seed, params=params, mesh=mesh)
     masks = gen(paths)
-    with open(args.fp, "w") as f:
-        json.dump(masks, f)
-    print(f"wrote {len(masks)} pseudo-masks to {args.fp}")
+    if is_main(mesh):
+        with open(args.fp, "w") as f:
+            json.dump(masks, f)
+        print(f"wrote {len(masks)} pseudo-masks to {args.fp}")
     return masks
 
 

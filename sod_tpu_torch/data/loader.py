@@ -7,8 +7,10 @@ threaded decode/augment with batch prefetch, and the padded train collate.
   a stable crc32 hash of the filename mod 10000;
 * ``DataLoader``: shuffled by ``default_rng([seed, epoch])``, samples
   fetched by a thread pool or, with ``use_processes``, by forked worker
-  processes, ``prefetch_batches`` collated batches queued.  No index
-  sharding over processes (multi-host, ROADMAP item 12).
+  processes, ``prefetch_batches`` collated batches queued.  Under a data
+  mesh, ``rows`` has each rank decode and collate only its rows of every
+  global batch, and ``shard_by_process`` (``sod_tpu``'s multi-host option)
+  gives each rank a disjoint index shard.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import queue
 import threading
 import zlib
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,17 +29,23 @@ def stable_label(filename: str, mod: int = 10000) -> int:
 
 
 def collate_train(samples: List[dict], max_gt_masks: int,
-                  batch_size: Optional[int] = None) -> dict:
+                  batch_size: Optional[int] = None,
+                  image_hw: Optional[Tuple[int, int]] = None, u8: bool = True) -> dict:
     """Pad a list of samples into one fixed-shape batch dict.
 
     Samples carrying ``image_u8`` (dataset ``train_u8`` mode) collate to a
     uint8 batch under the same ``"image"`` key — the train step normalizes
-    on device, quartering host->device traffic."""
+    on device, quartering host->device traffic.  ``image_hw`` and ``u8``
+    give the images' size and type when ``samples`` is empty (a data-parallel
+    rank that a short final batch does not reach: all padding)."""
     n = len(samples)
     batch_size = batch_size or n
-    u8 = "image_u8" in samples[0]
+    if n:
+        u8 = "image_u8" in samples[0]
+        h, w = samples[0]["image_u8" if u8 else "image"].shape[:2]
+    else:
+        h, w = image_hw
     key = "image_u8" if u8 else "image"
-    h, w = samples[0][key].shape[:2]
 
     images = np.zeros((batch_size, h, w, 3), np.uint8 if u8 else np.float32)
     # u8 mode ships the (binary) masks as uint8 too — the train step's
@@ -73,8 +81,19 @@ class DataLoader:
                  num_workers: int = 4,
                  collate_fn: Optional[Callable[[List[dict]], dict]] = None,
                  drop_last: bool = False, seed: int = 0,
-                 prefetch_batches: int = 2, use_processes: bool = False):
-        """:param use_processes: decode and augment in forked worker
+                 prefetch_batches: int = 2, use_processes: bool = False,
+                 shard_by_process: bool = False, rows: Optional[np.ndarray] = None):
+        """:param shard_by_process: each rank of the running
+        ``torch.distributed`` group iterates a disjoint index shard (its rank
+        of the world size, ``sod_tpu``'s ``jax.process_index()`` of
+        ``process_count()``), wrap-padded so that every rank has as many
+        batches.
+        :param rows: the positions of each batch that this process decodes
+        and collates, a data-parallel rank's rows
+        (``parallel.mesh.batch_sharding``); positions past the end of a short
+        final batch are left out, so ``collate_fn`` may get fewer samples, or
+        none.
+        :param use_processes: decode and augment in forked worker
         processes instead of threads (the augmentations are NumPy and hold
         the GIL, so threads stop scaling past ~2x).  The dataset reaches
         each worker once, through the pool's initializer; only indices and
@@ -90,6 +109,8 @@ class DataLoader:
         self.seed = seed
         self.prefetch_batches = prefetch_batches
         self.use_processes = use_processes
+        self.shard_by_process = shard_by_process
+        self.rows = None if rows is None else np.asarray(rows)
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -99,6 +120,9 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.shard_by_process:
+            rank, world = _process_shard()
+            n = len(range(rank, n, world))
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -108,10 +132,20 @@ class DataLoader:
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng([self.seed, self._epoch]).shuffle(order)
+        if self.shard_by_process:
+            rank, world = _process_shard()
+            if world > 1 and n % world:
+                # wrap-padded, so that every rank has as many batches: a rank
+                # with one fewer would leave the others waiting in a collective
+                order = np.concatenate([order, order[: world - n % world]])
+            order = order[rank::world]
+            n = len(order)
         batches = [order[i:i + self.batch_size]
                    for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.rows is not None:
+            batches = [b[self.rows[self.rows < len(b)]] for b in batches]
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
@@ -170,6 +204,16 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+
+
+def _process_shard() -> Tuple[int, int]:
+    """(rank, world size) of the running ``torch.distributed`` group, (0, 1)
+    without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 _WORKER_DATASET = None

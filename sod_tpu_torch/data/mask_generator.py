@@ -17,6 +17,12 @@ Steps 1-3 run on ``device`` per batch (the uint8 batch uploaded once and
 normalised there, f32 with TF32 off, one affinity matrix alive at a time);
 only the [B, G, G] label grids come back.  Steps 4-6 are host NumPy, run on
 a worker thread while the main thread queues the next batch.
+
+Under a data ``mesh`` (``parallel/mesh.py``, one process per rank) each rank
+decodes and runs its rows of every (wrap-padded) batch, and the label grids
+of every rank are gathered after each batch; rank 0 votes and encodes, so
+its JSON is the one-rank JSON byte for byte, and the other ranks return an
+empty dict and write nothing.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from sod_tpu_torch.data.custom import CustomDataset
 from sod_tpu_torch.data.loader import DataLoader
 from sod_tpu_torch.ops import rle as rle_codec
 from sod_tpu_torch.ops.resize import bilinear_separable, interpolate_nearest
+from sod_tpu_torch.parallel.mesh import (all_gather_into, batch_sharding, data_group, data_size,
+                                         is_main)
 from sod_tpu_torch.utils.misc import filter_masks
 
 
@@ -85,13 +93,16 @@ class MaskGenerator:
         :param params: {feature type: torch state dict} of the backbones
             (``models.convert.convert_vit`` / ``convert_resnet50`` keys);
             the others get seeded random weights (``_get_params``).
-        :param mesh: data-parallel sharding is ROADMAP item 12 and raises."""
+        :param mesh: a data mesh (``parallel.make_mesh``) whose ranks split
+            every batch's image axis; ``batch_size`` must divide by its size."""
         if cluster_type not in ("spectral", "k-means"):
             raise ValueError(f"cluster_type {cluster_type!r}: spectral or k-means")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported to sod_tpu_torch (ROADMAP item 12, the "
-                "parallel layouts); the port generates masks on one device")
+        if mesh is not None and batch_size % data_size(mesh):
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh's "
+                f"data axis {data_size(mesh)} — every shard needs "
+                "equal rows")
+        self.mesh = mesh
         self.cluster_sizes = list(cluster_sizes)
         self.cluster_type = cluster_type
         self.feature_types = list(feature_types)
@@ -184,26 +195,43 @@ class MaskGenerator:
     def _label_batches(self, p_images: List[str]):
         """Yield ``(samples, {(feature type, k): [n, G, G] labels})`` per
         batch; batch i + 1's device work is queued before batch i's labels
-        are fetched."""
+        are fetched.  Under a mesh each rank decodes and runs its rows of
+        the batch, ``samples`` are the whole batch's and the labels every
+        rank's."""
         ds = CustomDataset(p_images, image_size=self.image_size, square=True,
                            raw_uint8=True)
-        loader = DataLoader(ds, batch_size=self.batch_size, shuffle=False, num_workers=4)
         fns = {ft: self._extract_cluster_fn(ft) for ft in self.feature_types}
+        b = self.batch_size
+        rows = batch_sharding(self.mesh, b)
+        loader = DataLoader(ds, batch_size=b, shuffle=False, num_workers=4, rows=rows)
 
         def fetch(pending):
             samples, results = pending
             return samples, {(ft, k): results[ft][k][:len(samples)].cpu().numpy()
                              for ft in self.feature_types for k in self.cluster_sizes}
 
+        def gathered(labels: torch.Tensor) -> torch.Tensor:
+            if self.mesh is None:
+                return labels
+            whole = labels.new_empty((b,) + tuple(labels.shape[1:]))
+            all_gather_into(whole, labels.contiguous(), group=data_group(self.mesh))
+            return whole
+
         pending = None
-        for samples in loader:
-            arr = np.stack([s["image_u8"] for s in samples])
-            if len(arr) < self.batch_size:
-                # the ragged final batch, wrap-padded to the full batch (every
-                # batch has one shape); fetch trims the copies
-                arr = np.concatenate([arr, arr[-1:].repeat(self.batch_size - len(arr), 0)])
-            u8 = torch.from_numpy(arr).to(self.device)
-            results = {ft: fns[ft](u8) for ft in self.feature_types}
+        for i, mine in enumerate(loader):
+            batch = range(i * b, min((i + 1) * b, len(ds)))
+            arr = [s["image_u8"] for s in mine]
+            if len(arr) < len(rows):
+                # the ragged final batch, wrap-padded with its last image (every
+                # batch has one shape, a rank past its end all padding); fetch
+                # trims the copies
+                last = arr[-1] if arr else ds[batch[-1]]["image_u8"]
+                arr += [last] * (len(rows) - len(arr))
+            u8 = torch.from_numpy(np.stack(arr)).to(self.device)
+            results = {ft: {k: gathered(v) for k, v in fns[ft](u8).items()}
+                       for ft in self.feature_types}
+            samples = mine if self.mesh is None else [{"p_img": ds.image_paths[j]}
+                                                      for j in batch]
             if pending is not None:
                 yield fetch(pending)
             pending = (samples, results)
@@ -246,13 +274,16 @@ class MaskGenerator:
         order.  A worker thread builds, filters, votes and encodes each
         batch's candidates while the next batch runs on the device."""
         out = {}
+        main = is_main(self.mesh)
         with ThreadPoolExecutor(max_workers=1) as pool:
             futures = [pool.submit(self._vote_batch, samples, labels)
-                       for samples, labels in self._label_batches(p_images)]
+                       for samples, labels in self._label_batches(p_images) if main]
             for fut in futures:
                 out.update(fut.result())
         return out
 
     def dump(self, p_images: List[str], fp: str) -> None:
-        with open(fp, "w") as f:
-            json.dump(self(p_images), f)
+        masks = self(p_images)
+        if is_main(self.mesh):
+            with open(fp, "w") as f:
+                json.dump(masks, f)

@@ -30,9 +30,11 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from sod_tpu_torch.ops.hungarian import hungarian
 from sod_tpu_torch.ops.resize import _resize_matrix
+from sod_tpu_torch.parallel.mesh import data_group, gather_rows
 
 
 @functools.lru_cache(maxsize=64)
@@ -76,18 +78,27 @@ def bce_loss_matrix(pred: torch.Tensor, gt: torch.Tensor,
 
 def contrastive_loss(features: torch.Tensor, labels: torch.Tensor,
                      temperature: float,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Supervised InfoNCE over pooled decoder queries.
 
     :param features: [B, D]; :param labels: [B] int.
     :param valid: optional [B] bool; invalid rows leave the positives, the
         denominator and the final mean.
+    :param mesh: the data mesh whose ranks hold the other rows of the
+        global batch: features, labels and ``valid`` are gathered first, so
+        the term is the global batch's (``sod_tpu``'s [B, B] similarity,
+        positives and negatives from every rank's images) and alike on
+        every rank.  The gather hands each rank the gradient of its own
+        rows, so the reduced gradient counts the term once.
     Guards (return 0.0): fewer than 2 valid rows or no positive pairs."""
+    if valid is None:
+        valid = torch.ones(features.shape[0], dtype=torch.bool, device=features.device)
+    if mesh is not None:
+        features = gather_rows(features, mesh)
+        labels, valid = gather_rows(labels, mesh), gather_rows(valid, mesh)
     b = features.shape[0]
     if b < 2:
         return features.new_zeros((), dtype=torch.float32)
-    if valid is None:
-        valid = torch.ones(b, dtype=torch.bool, device=features.device)
     validf = valid.float()
     n_valid = validf.sum()
 
@@ -143,8 +154,18 @@ def criterion_forward(
     weight_contrastive_loss: float = 0.1,
     weight_rank_loss: float = 1.0,
     temperature: float = 0.07,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """The criterion over a padded batch.
+
+    With a data ``mesh`` the batch is this rank's rows of the global one:
+    the image count is the global count (``sod_tpu``'s ``n_imgs`` over the
+    whole batch) and the contrastive term the global batch's
+    (``contrastive_loss``).  The sums over images are then this rank's
+    share: ``loss``, ``avg_loss`` and the ``avg_*`` diagnostics summed over
+    the ranks give ``sod_tpu``'s values, except ``avg_contrastive_loss``,
+    which is global already, and ``loss`` counts ``weight_contrastive_loss
+    * con / n_imgs`` on every rank (the gradient counts it once).
 
     :param mask_pred: [B, L, Q, h, w] sigmoid mask predictions.
     :param gt_masks:  [B, M, H, W] binary GT stacks, padded over M.
@@ -173,7 +194,10 @@ def criterion_forward(
     pred_up_sum = torch.matmul(torch.matmul(predf, cw), ch)            # [B, L, Q]
 
     img_valid = gt_valid.any(dim=1)                                    # [B]
-    n_imgs = img_valid.sum().clamp_min(1)
+    n_imgs = img_valid.sum()
+    if mesh is not None:
+        dist.all_reduce(n_imgs, group=data_group(mesh))
+    n_imgs = n_imgs.clamp_min(1)
     gt0 = gt_flat[:, 0]
     gt_sums = gt_flat.sum(-1)                                          # [B, M]
     zero = predf.new_zeros(())
@@ -183,7 +207,7 @@ def criterion_forward(
         # returns the contrastive term alone (criterion.py:237-263)
         if features is not None and feature_labels is not None:
             con = contrastive_loss(features, feature_labels, temperature,
-                                   valid=img_valid)
+                                   valid=img_valid, mesh=mesh)
         else:
             con = zero
         return {
@@ -248,7 +272,7 @@ def criterion_forward(
 
     if features is not None and feature_labels is not None:
         con = contrastive_loss(features, feature_labels, temperature,
-                               valid=img_valid)
+                               valid=img_valid, mesh=mesh)
     else:
         con = zero
     # normalised by the number of images that contributed (criterion.py:374)

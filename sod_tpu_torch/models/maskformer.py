@@ -60,20 +60,21 @@ class MaskFormerConfig:
         return 6 if self.arch != "vit_small" else self.vit.n_heads
 
 
-# (Config field, the one value the port runs, where the rest is queued)
+# (Config field, the one value the port runs, where the rest is queued):
+# the model-sharding layouts, item 12's second half
 _LIVE_ONLY = (
-    ("fsdp", "none", "ROADMAP item 12, parallel/fsdp.py"),
-    ("mesh_data_axis", 1, "ROADMAP item 12, data parallelism"),
-    ("mesh_model_axis", 1, "ROADMAP item 12, parallel/tp.py"),
-    ("mesh_pipe_axis", 1, "ROADMAP item 12, parallel/pp.py"),
-    ("mesh_seq_axis", 1, "ROADMAP item 12, parallel/sp.py"),
+    ("mesh_model_axis", 1, "ROADMAP item 12b, parallel/tp.py"),
+    ("mesh_pipe_axis", 1, "ROADMAP item 12b, parallel/pp.py"),
+    ("mesh_seq_axis", 1, "ROADMAP item 12b, parallel/sp.py"),
 )
 
 
 def config_from(cfg) -> MaskFormerConfig:
     """MaskFormerConfig from the flat experiment ``Config`` (any object
     with its fields).  Raises ``NotImplementedError`` for a setting the port
-    does not run yet (the parallel layouts) instead of ignoring it.
+    does not run yet (the model-sharding layouts: a model, pipe or seq mesh
+    axis) instead of ignoring it; ``fsdp`` and ``mesh_data_axis`` are read
+    by the Trainer (``parallel/``).
     ``arch``, ``use_binary_classifier``, ``learnable_pixel_decoder``,
     ``lateral_connection`` and ``loss_every_decoder_layer`` (as
     ``return_intermediate``) are carried as ``sod_tpu`` carries them;

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sod_tpu_torch.parallel.mesh import all_reduce_sum, batch_mesh, data_size
+
 RESNET50_OUT_CHANNELS = 2048
 _PLANES = (64, 128, 256, 512)
 _FAMILY = {
@@ -76,15 +78,28 @@ def batch_norm_train(bn: BatchNorm, x: torch.Tensor, eps: float = 1e-5,
                      momentum: float = 0.1):
     """Train-mode BN on NCHW x: normalise by the batch's biased variance.
 
+    Inside ``parallel.mesh.batch_over(mesh)`` x is this rank's rows of a
+    global batch, and the statistics are the global batch's, as GSPMD gives
+    them to ``sod_tpu``: the sums, then the sums of squared deviations,
+    all-reduced over the ranks (differentiably) before normalising and
+    before the running-statistics update.
+
     :return: (y, {"mean": new running mean, "var": new running var}), the
         running variance updated with the unbiased batch variance."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = xf.var(dim=(0, 2, 3), unbiased=False)
+    mesh = batch_mesh()
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    if mesh is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.var(dim=(0, 2, 3), unbiased=False)
+    else:
+        n *= data_size(mesh)
+        mean = all_reduce_sum(xf.sum(dim=(0, 2, 3)), mesh) / n
+        var = all_reduce_sum((xf - mean[:, None, None]).square().sum(dim=(0, 2, 3)),
+                             mesh) / n
     inv = torch.rsqrt(var + eps)
     y = ((xf - mean[:, None, None]) * inv[:, None, None] * bn.weight.float()[:, None, None]
          + bn.bias.float()[:, None, None]).to(x.dtype)
-    n = x.shape[0] * x.shape[2] * x.shape[3]
     unbiased = var * (n / max(n - 1, 1))
     new = {"mean": ((1 - momentum) * bn.running_mean.float() + momentum * mean.detach()
                     ).to(bn.running_mean.dtype),

@@ -13,12 +13,16 @@ immutable jax arrays by reference; here the optimizer updates parameters
 and moments in place, so ``save`` first copies them to the host on the
 caller's thread, and only ``torch.save`` and the rename run on the writer
 thread.
+
+Under a data mesh the Trainer gathers the whole state on every rank
+(``StateLayout.full_state``) and rank 0 writes it: the file is the same
+under every layout, and any layout resumes it.
 """
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -29,15 +33,19 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.device.type == "cpu" else t.cpu()
 
 
-def snapshot(model: torch.nn.Module, optimizer=None, epoch: int = 0,
+def snapshot(model, optimizer=None, epoch: int = 0,
              n_iters: int = 0, extra: Optional[Dict] = None) -> Dict:
-    """The checkpoint's contents, copied to the host."""
-    payload = {"model": {k: _host_copy(v) for k, v in model.state_dict().items()},
+    """The checkpoint's contents, copied to the host.  ``model`` and
+    ``optimizer`` are the objects or their state dicts (a data-parallel
+    Trainer hands the whole state that ``StateLayout.full_state`` gathered)."""
+    model_state = model if isinstance(model, Mapping) else model.state_dict()
+    payload = {"model": {k: _host_copy(v) for k, v in model_state.items()},
                "epoch": epoch, "n_iters": n_iters}
     if optimizer is not None:
+        opt_state = optimizer if isinstance(optimizer, Mapping) else optimizer.state_dict()
         payload["optimizer"] = {
             k: ([_host_copy(t) for t in v] if isinstance(v, list) else v)
-            for k, v in optimizer.state_dict().items()}
+            for k, v in opt_state.items()}
     if extra:
         payload["extra"] = extra
     return payload
@@ -52,7 +60,7 @@ def write_checkpoint(path: str, payload: Dict) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
+def save_checkpoint(path: str, model, optimizer=None,
                     epoch: int = 0, n_iters: int = 0,
                     extra: Optional[Dict] = None) -> None:
     """Write a training checkpoint to the file ``path``."""
@@ -73,7 +81,7 @@ class AsyncSaver:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, path: str, model: torch.nn.Module, optimizer=None,
+    def save(self, path: str, model, optimizer=None,
              **kw) -> None:
         self.wait()
         payload = snapshot(model, optimizer, **kw)

@@ -19,7 +19,13 @@ Metrics stay on the device and are fetched once, after the last batch.
 Keys, CSV header and rows and the returned dict (with the reference's
 ``pixel_accuarcy`` spelling) are ``sod_tpu``'s.  With a ``visualizer``, the
 first image of every ``vis_every``-th batch is rendered from the last
-layer's pre-upsample masks.  Not ported here: meshes (ROADMAP item 12).
+layer's pre-upsample masks.
+
+Under a data ``mesh`` (``parallel/mesh.py``, one process per rank) each
+rank decodes and runs its rows of every canvas batch, and the per-image
+metrics of every rank are gathered after each batch, so every rank returns
+the single-device numbers, a short final batch included; rank 0 writes the
+CSV and renders the visualizer's images.
 """
 from __future__ import annotations
 
@@ -41,6 +47,9 @@ from sod_tpu_torch.models.maskformer import (MaskFormerConfig, config_from, mask
                                              require_vit_canvas)
 from sod_tpu_torch.models.vit import pos_embed_canvas_device
 from sod_tpu_torch.ops.resize import _resize_matrix, bilinear_separable
+from sod_tpu_torch.parallel.mesh import (all_gather_into, batch_sharding, data_group, data_size,
+                                         is_main,
+                                         replicated)
 
 _METRICS = ("f_measure", "f_max", "f_mean", "mae", "iou", "pixel_acc",
             "s_measure")
@@ -113,13 +122,15 @@ class Evaluator:
     def __init__(self, model, cfg, mcfg: Optional[MaskFormerConfig] = None,
                  dir_dataset: Optional[str] = None, visualizer=None,
                  debug: bool = False, batch_size: int = 16, device=None,
-                 vis_every: int = 250):
+                 vis_every: int = 250, mesh=None):
         """:param model: a ``MaskFormer`` (its weights are used as they are,
             its parameters are not changed).
         :param visualizer: a ``utils.visualizer.Visualizer`` (its
             ``eval_grid``), called every ``vis_every`` batches (ref
             evaluator pyc 240-269 renders grids every 250 batches).
-        :param device: where evaluation runs (default: the model's device)."""
+        :param device: where evaluation runs (default: the model's device).
+        :param mesh: a data mesh (``parallel.make_mesh``) whose ranks split
+            every batch; the model's weights are broadcast from rank 0."""
         self.model = model
         self.visualizer = visualizer
         self.vis_every = max(1, vis_every)
@@ -139,7 +150,18 @@ class Evaluator:
         self.batch_size = batch_size
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
+        self.mesh = mesh
+        self._n_data = data_size(mesh)
+        self._check_batch(batch_size)
+        replicated(model, mesh)
         self._canvas_cache: Dict = {}
+
+    def _check_batch(self, batch_size: int) -> None:
+        """Every rank needs as many rows (``sod_tpu``'s check and message)."""
+        if self.mesh is not None and batch_size % self._n_data != 0:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh's data "
+                f"axis ({self._n_data})")
 
     def _max_image_size(self, dataset, dataset_name, img_size):
         """Max (h, w) over the dataset's images, computed once per dataset:
@@ -243,6 +265,7 @@ class Evaluator:
             raise ValueError(cost_type)
         cfg = self.cfg
         batch_size = batch_size or self.batch_size
+        self._check_batch(batch_size)
         dataset = get_dataset(self.dir_dataset, dataset_name, mode="test",
                               eval_img_size=img_size or cfg.eval_image_size)
         if len(dataset) == 0:
@@ -253,18 +276,29 @@ class Evaluator:
                                             img_size or cfg.eval_image_size)
         pad = lambda v: -(-v // p) * p  # noqa: E731
         dataset.return_raw = True
-        collate = functools.partial(collate_canvas, batch_size=batch_size,
+        local_b = batch_size // self._n_data
+        collate = functools.partial(collate_canvas, batch_size=local_b,
                                     canvas_hw=(pad(max_h), pad(max_w)), patch_size=p)
-        loader = DataLoader(dataset, batch_size=batch_size, shuffle=False,
-                            num_workers=cfg.num_workers, collate_fn=collate)
-        pending = []                                  # (n, {metric: [B]} on device)
+        loader = DataLoader(
+            dataset, batch_size=batch_size, shuffle=False, num_workers=cfg.num_workers,
+            collate_fn=collate,
+            rows=None if self.mesh is None else batch_sharding(self.mesh, batch_size))
+        keys = [*_METRICS, *(f"{k}_ub" for k in _METRICS)]
+        pending = []                        # (n, [B, 14] metrics on the device)
         with torch.inference_mode():
             for bi, batch in enumerate(loader):
                 arrays = [torch.from_numpy(batch[k]).to(self.device, non_blocking=True)
                           for k in ("image", "gt", "grid_sizes", "hw")]
-                vis = self.visualizer is not None and bi % self.vis_every == 0
+                vis = (self.visualizer is not None and bi % self.vis_every == 0
+                       and is_main(self.mesh))
                 metrics, payload = self._step(scale_factor, *arrays, cost_type, vis=vis)
-                pending.append((batch["n"], metrics))
+                table = torch.stack([metrics[k].float() for k in keys], dim=1)
+                if self.mesh is not None:
+                    # every rank's rows, in the batch's order
+                    whole = table.new_empty((batch_size, len(keys)))
+                    all_gather_into(whole, table, group=data_group(self.mesh))
+                    table = whole
+                pending.append((min(batch_size, len(dataset) - bi * batch_size), table))
                 if vis:
                     self._visualize(dataset_name, bi, batch, payload, scale_factor)
                 if self.debug:
@@ -273,16 +307,15 @@ class Evaluator:
         meters = {k: AverageMeter() for k in _METRICS}
         meters.update({f"{k}_ub": AverageMeter() for k in _METRICS})
         rows = []
-        keys = [*_METRICS, *(f"{k}_ub" for k in _METRICS)]
-        for n, out in pending:
-            host = {k: out[k].float().cpu().tolist() for k in keys}
+        for n, table in pending:
+            host = dict(zip(keys, table.cpu().t().tolist()))
             for i in range(n):
                 for k in keys:
                     meters[k].update(host[k][i], 1)
                 rows.append([host[k][i] for k in _CSV_ORDER]
                             + [host[f"{k}_ub"][i] for k in _CSV_ORDER])
 
-        if dir_ckpt is not None:
+        if dir_ckpt is not None and is_main(self.mesh):
             os.makedirs(dir_ckpt, exist_ok=True)
             with open(os.path.join(dir_ckpt, f"metrics_{dataset_name}.txt"), "w") as f:
                 f.write(CSV_HEADER)

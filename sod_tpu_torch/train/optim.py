@@ -58,10 +58,14 @@ class ClippedAdamW:
                 for p in self.params]
 
     @torch.no_grad()
-    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
-        """One update from the parameters' ``.grad``; ``grad_norm`` is their
-        global norm if the caller has it already."""
-        grads = self.grads()
+    def step(self, grad_norm: Optional[torch.Tensor] = None,
+             grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from the parameters' ``.grad``, or from ``grads`` (one
+        per parameter: a data-parallel layout hands the reduced gradients
+        of the tensors it steps on, ``parallel/fsdp.py``); ``grad_norm`` is
+        the global norm of the whole gradient if the caller has it (it
+        must, when ``grads`` are shards)."""
+        grads = self.grads() if grads is None else list(grads)
         g_norm = global_norm(grads) if grad_norm is None else grad_norm
         # optax: where(||g|| < max_norm, g, (g / ||g||) * max_norm)
         keep = g_norm < self.max_norm

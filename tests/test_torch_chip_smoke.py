@@ -207,3 +207,24 @@ def test_training_options_phase_is_run_and_fails_without_a_card(check):
     args = () if check == "async_checkpoint_check" else (load_config(cs.CONFIG),)
     with pytest.raises((RuntimeError, AssertionError)):
         getattr(cs, check)(*args)
+
+
+def test_data_mesh_phase_is_run_and_fails_without_a_card():
+    """Phase 22 (the data mesh at a world size of 1 over NCCL: the default,
+    fused ZeRO-1 and FSDP-full steps, the Evaluator, MaskGenerator) is part
+    of ``main``; off the card it fails before any process group starts,
+    instead of falling back to gloo on the CPU."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+
+    assert "data_mesh_check()" in inspect.getsource(cs.main)
+    source = inspect.getsource(cs.data_mesh_check)
+    for part in ("default step", "use_fused_train, zero1", "fsdp full", "Evaluator",
+                 "MaskGenerator"):
+        assert part in source
+    with pytest.raises((RuntimeError, AssertionError, ValueError)):
+        cs.data_mesh_check()
+    assert not torch.distributed.is_initialized()

@@ -509,9 +509,23 @@ def test_cli_loads_a_checkpoint_of_the_trainer(tmp_path, rng, capsys, two_thread
 
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"]])
-def test_cli_refuses_mesh_flags(flags):
+def test_cli_refuses_mesh_flags(flags, monkeypatch):
+    """``--tp`` and ``--sp`` raise (ROADMAP item 12b); ``--n_devices 2``
+    spawns two ranks of the CLI, each evaluating its rows of every batch
+    (recorded here; ``tests/test_torch_data_parallel.py`` runs the Evaluator
+    on two ranks)."""
+    argv = ["--config", "unused.yaml", "--device", "cpu", *flags]
+    if flags[0] == "--n_devices":
+        import sod_tpu_torch.parallel.mesh as mesh_mod
+
+        spawned = []
+        monkeypatch.setattr(mesh_mod, "spawn_ranks",
+                            lambda fn, n, *args: spawned.append((fn, n, args)))
+        assert cli.main(argv) == {}
+        assert spawned == [(cli._rank_main, 2, (argv,))]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        cli.main(["--config", "unused.yaml", "--device", "cpu", *flags])
+        cli.main(argv)
 
 
 def test_eval_modules_import_no_jax():

@@ -13,7 +13,8 @@
   weights writes a byte-identical RLE JSON, k-means and spectral, the ViT
   and the ResNet-50 backbones; ``vote_mask`` and the label upsample.
 * ``cli/generate_masks.py``: the reference command line parses, runs on the
-  CPU with ``--device cpu``, and ``--n_devices 2`` is refused.
+  CPU with ``--device cpu``, and ``--n_devices 2`` is refused without two
+  cards (``tests/test_torch_data_parallel.py`` runs it on two CPU ranks).
 * ``train/evaluator.salient_mask_index`` equal to ``sod_tpu``'s.
 """
 import itertools
@@ -180,7 +181,7 @@ def test_mask_generator_defaults_and_refusals():
     gen = MaskGenerator()
     assert gen.device.type == "cuda"          # the card unless asked
     assert (gen.cluster_sizes, gen.feature_types) == ([2, 3, 4], ["mocov2", "swav", "dino"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MaskGenerator(mesh=object())
     with pytest.raises(ValueError):
         MaskGenerator(cluster_type="dbscan")
@@ -214,7 +215,8 @@ def test_cli_reference_line_parses_and_n_devices_is_refused():
         ["--p_images", "a/*.jpg", "--fp", "out.json", "--use_gpu", "True", "--gpu_id", "0"])
     assert args.device == "cuda" and args.feature_types == ["mocov2", "swav", "dino"]
     assert (args.cluster_type, args.cluster_sizes, args.batch_size) == ("spectral", [2, 3, 4], 16)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # on the card (the default device) with none here: sod_tpu's make_mesh error
+    with pytest.raises(ValueError, match="requested 2 devices, have 0"):
         cli.main(["--p_images", "a.jpg", "--n_devices", "2"])
 
 

@@ -55,6 +55,8 @@ def test_every_port_module_imports_without_jax_or_sod_tpu():
     assert {"sod_tpu_torch.postprocess", "sod_tpu_torch.postprocess.bilateral_solver",
             "sod_tpu_torch.serving.pool", "sod_tpu_torch.cli.refine",
             "sod_tpu_torch.cli.smoke", "sod_tpu_torch.cli.export"} <= set(mods)
+    assert {"sod_tpu_torch.parallel", "sod_tpu_torch.parallel.mesh",
+            "sod_tpu_torch.parallel.fsdp"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -210,15 +210,16 @@ def test_config_from_maps_pallas_attention_onto_use_flash(flash):
     ("async_checkpoint", True), ("fsdp", "zero1"), ("mesh_data_axis", 2),
     ("mesh_model_axis", 2), ("mesh_pipe_axis", 2), ("mesh_seq_axis", 2)])
 def test_config_from_refuses_settings_it_does_not_port(key, value):
-    """Refused: the parallel layouts (ROADMAP item 12).  Ported, so
-    accepted as ``sod_tpu``'s ``config_from`` takes them: ``remat`` carried
-    into ``ViTConfig``, ``loss_every_decoder_layer`` into
-    ``return_intermediate`` (read by no forward), and ``use_copy_paste`` /
-    ``async_checkpoint``, read by the dataset and the Trainer, leave the
+    """Refused: the model-sharding layouts, a model, pipe or seq mesh axis
+    (ROADMAP item 12b).  Ported, so accepted as ``sod_tpu``'s
+    ``config_from`` takes them: ``remat`` carried into ``ViTConfig``,
+    ``loss_every_decoder_layer`` into ``return_intermediate`` (read by no
+    forward), and ``use_copy_paste`` / ``async_checkpoint`` / ``fsdp`` /
+    ``mesh_data_axis``, read by the dataset and the Trainer, leave the
     model's config as it is."""
     cfg = _Cfg()
     setattr(cfg, key, value)
-    if key.startswith(("fsdp", "mesh_")):
+    if key in ("mesh_model_axis", "mesh_pipe_axis", "mesh_seq_axis"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
             config_from(cfg)
         return

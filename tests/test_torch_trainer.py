@@ -3,7 +3,8 @@ workspace, on the CPU: one epoch of the small model gives finite metrics,
 writes ``latest_model.pt`` and logs the evaluation of each benchmark as
 skipped (the workspace holds no test split); ``resume``
 restores the iteration count, the parameters and the optimizer; the CLI
-trains, refuses ``sod_tpu``'s mesh flags, and imports no jax."""
+trains, takes ``--n_devices`` and ``--fsdp``, refuses ``sod_tpu``'s
+model-sharding flags, and imports no jax."""
 import json
 import os
 import subprocess
@@ -107,20 +108,33 @@ def test_cli_trains_and_resumes(workspace, capsys, two_threads):
                                    ["--pp", "2"], ["--sp", "2"],
                                    ["--fsdp", "zero1"], ["--async-checkpoint"]])
 def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
-    """The mesh flags raise (ROADMAP item 12).  ``--async-checkpoint`` is not
-    one of them: it sets ``async_checkpoint`` for the Trainer, and the CLI
-    waits for the last write before it returns
+    """The model-sharding flags raise (ROADMAP item 12b).  The others are
+    accepted (``sod_tpu/cli/train.py:27-54, 96-140``): ``--n_devices 2``
+    spawns two ranks of the CLI (recorded here; a spawned CLI runs in
+    ``tests/test_torch_data_parallel.py``); ``--fsdp`` sets ``fsdp`` and
+    ``--async-checkpoint`` sets ``async_checkpoint`` for the Trainer, and
+    the CLI waits for the last write before it returns
     (``sod_tpu/cli/train.py:79-80, 148``)."""
     _, fp = workspace
-    if flags != ["--async-checkpoint"]:
+    argv = ["--config", fp, "--device", "cpu", *flags]
+    if flags[0] in ("--tp", "--pp", "--sp"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            cli.main(["--config", fp, "--device", "cpu", *flags])
+            cli.main(argv)
+        return
+    if flags[0] == "--n_devices":
+        import sod_tpu_torch.parallel.mesh as mesh_mod
+
+        spawned = []
+        monkeypatch.setattr(mesh_mod, "spawn_ranks",
+                            lambda fn, n, *args: spawned.append((fn, n, args)))
+        cli.main(argv)
+        assert spawned == [(cli._rank_main, 2, (argv,))]
         return
     calls = []
 
     class Recording:
         def __init__(self, cfg, **kw):
-            calls.append(("init", cfg.async_checkpoint))
+            calls.append(("init", cfg.async_checkpoint, cfg.fsdp, kw["mesh"]))
             self.dir_ckpt = cfg.dir_ckpt
 
         def __call__(self, n_epochs, start_epoch=1):
@@ -131,8 +145,10 @@ def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
 
     import sod_tpu_torch.train.trainer as trainer_mod
     monkeypatch.setattr(trainer_mod, "Trainer", Recording)
-    cli.main(["--config", fp, "--device", "cpu", *flags])
-    assert calls == [("init", True), ("train", 1), ("wait",)]
+    cli.main(argv)
+    init = (("init", True, "none", None) if flags == ["--async-checkpoint"]
+            else ("init", False, "zero1", None))
+    assert calls == [init, ("train", 1), ("wait",)]
 
 
 def test_cli_imports_no_jax():
