@@ -227,7 +227,18 @@ Then, after phase 21:
    byte-equal to the run with no mesh; (g) the rank's rows of a synthetic
    DUTS-TR through ``DataLoader`` workers forked after NCCL is up, byte-equal
    to the thread loader's; (f) the default step's ms with and without the
-   mesh, in turns.
+   mesh, in turns;
+23. the model-sharding layouts (ROADMAP item 12b) at the live config's full
+   width, f32, the kernel flags off: ``cli.train --tp 2`` refused on one
+   card before any rendezvous; the packed qkv split and merged back bit for
+   bit; two ranks' arithmetic in one process (TP's two head groups'
+   row-parallel partials against the whole block, SP's two query slices
+   absorbing both key/value slices against dense attention); one step
+   under each of TP, PP (M = 2), SP, p3 and sptp at one rank over NCCL
+   against the step with no mesh (weights within ``LAYOUT_MAX_ABS``,
+   moments and metrics within ``LAYOUT_MAX_REL``, no port kernel launched),
+   their step ms in turns; the SP Evaluator on the 400 px canvas against
+   the run with no mesh.
 
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
@@ -4514,6 +4525,253 @@ def data_mesh_check():
     return report
 
 
+# phase 23: the model-sharding layouts at one rank over NCCL.  Each layout
+# runs its own code (the split and merge of the packed qkv, Megatron's f and
+# g, the GPipe ticks with M = 2, the ring with its pad mask) in one f32 train
+# step at full width against the step with no mesh from the same weights and
+# batch.  Adam's first update moves a weight by the learning rate whatever
+# its gradient's size (6e-6 in the shipped config), so two runs whose
+# near-zero gradients round apart differ by at most twice that; the moments
+# (0.1 g and 0.001 g^2 of the clipped gradient) and the metrics are held
+# relative to the largest of the run with no mesh.  The two-rank arithmetic
+# (two head groups' row-parallel partials, two query slices absorbing both
+# key/value slices) is held to f32 reassociation, and the SP Evaluator's 14
+# metric means to LAYOUT_EVAL_MAX_ABS
+LAYOUT_MAX_ABS, LAYOUT_MAX_REL = 2e-5, 1e-4
+LAYOUT_SPLIT_MAX_ABS = 1e-4
+LAYOUT_EVAL_MAX_ABS, LAYOUT_EVAL_IMAGES, LAYOUT_EVAL_B = 1e-3, 8, 8
+LAYOUT_ROUNDS, LAYOUT_TIMED_STEPS = 3, 3
+
+
+def _layout_step(cfg, sd, batch, mesh, kind: str):
+    """One step from ``sd`` under ``kind``'s layout on ``mesh`` (no mesh for
+    None): its metrics, whole weights and moments after it, the kernels it
+    launched, and the step and batch for timing."""
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from
+    from sod_tpu_torch.parallel import shard_batch
+    from sod_tpu_torch.parallel.layouts import train_layout
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    model = MaskFormer(config_from(cfg))
+    model.load_state_dict(sd)
+    model.cuda()
+    apply_fn, layout = train_layout(cfg, model.cfg, model, mesh)
+    opt = build_optimizer(cfg, model.parameters() if layout is None else layout.tensors,
+                          n_iters_per_epoch=100)
+    step = make_train_step(cfg, model, opt, layout=layout, apply_fn=apply_fn)
+    local = batch if mesh is None else shard_batch(batch, mesh)
+    reset_launch_counts()
+    metrics = step(local)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if layout is None:
+        state, opt_state = model.state_dict(), opt.state_dict()
+    else:
+        state, opt_state = layout.full_state(opt)
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
+            "state": {k: v.detach().clone() for k, v in state.items()},
+            "moments": opt_state["mu"] + opt_state["nu"], "step": step, "batch": local,
+            "kind": kind}
+
+
+def _layout_gaps(ref, got):
+    """(max abs over the weights, max relative over the moments, max
+    relative over the metrics) of ``got`` against ``ref``."""
+    w = max(float((ref["state"][k].float() - got["state"][k].float()).abs().max())
+            for k in ref["state"])
+    m = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+            for a, b in zip(ref["moments"], got["moments"]) if a.numel())
+    r = max(abs(ref["metrics"][k] - got["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-30)
+            for k in ref["metrics"])
+    return w, m, r
+
+
+def _two_rank_arithmetic(sd, cfg):
+    """The two-rank arithmetic one process can hold, on CUDA tensors: TP's two
+    head groups' row-parallel partials summed against the whole block, SP's
+    two query slices (785 tokens padded to 786, the pad masked) each
+    absorbing both key/value slices in turn against dense attention."""
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from
+    from sod_tpu_torch.ops.attention import _merge_heads, sdpa
+    from sod_tpu_torch.ops.layers import gelu, linear
+    from sod_tpu_torch.parallel.fsdp import _PACKED, model_shard
+    from sod_tpu_torch.parallel.sp import absorb
+    from sod_tpu_torch.parallel.tp import _row_parallel, tp_specs
+
+    model = MaskFormer(config_from(cfg))
+    model.load_state_dict(sd)
+    blk = model.encoder.blocks[0].cuda()
+    vcfg = model.cfg.vit
+    wrap = torch.nn.ModuleList([blk])
+    specs = tp_specs(wrap, 2)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(TRAIN_B, TRAIN_N, vcfg.embed_dim, device="cuda", generator=g)
+    with torch.no_grad():
+        whole = blk(x)
+        hd = vcfg.embed_dim // vcfg.n_heads
+        shards = [{n: model_shard(p, specs[n]["model"], 2, r, bool(_PACKED.search(n)))
+                   if specs[n] else p for n, p in wrap.named_parameters()} for r in range(2)]
+        h, parts = blk.norm1(x), []
+        for w in shards:
+            y = linear(h, w["0.attn.qkv.weight"], w["0.attn.qkv.bias"])
+            y = y.reshape(TRAIN_B, TRAIN_N, 3, -1, hd)
+            q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+            parts.append(_row_parallel(_merge_heads(sdpa(q, k, v, hd ** -0.5)),
+                                       w["0.attn.proj.weight"], None, None))
+        x1 = x + ((parts[0] + parts[1]) + blk.attn.proj.bias)
+        h2, parts = blk.norm2(x1), []
+        for w in shards:
+            u = gelu(linear(h2, w["0.mlp.fc1.weight"], w["0.mlp.fc1.bias"]))
+            parts.append(_row_parallel(u, w["0.mlp.fc2.weight"], None, None))
+        tp = float(((x1 + ((parts[0] + parts[1]) + blk.mlp.fc2.bias)) - whole).abs().max())
+        # the ring's update over two slices of 393 (the last key a pad)
+        q, k, v = (torch.randn(TRAIN_B, vcfg.n_heads, TRAIN_N + 1, hd, device="cuda",
+                               generator=g) for _ in range(3))
+        mask = torch.ones(TRAIN_B, TRAIN_N + 1, dtype=torch.bool, device="cuda")
+        mask[:, TRAIN_N:] = False
+        dense = sdpa(q, k, v, hd ** -0.5, mask)
+        c, sp = (TRAIN_N + 1) // 2, 0.0
+        for j in range(2):
+            qs = q[:, :, j * c:(j + 1) * c].float()
+            m = torch.full(qs.shape[:3], -1e30, device="cuda")
+            l, acc = torch.zeros_like(m), torch.zeros_like(qs)
+            for i in range(2):
+                sl = slice(((j - i) % 2) * c, ((j - i) % 2 + 1) * c)
+                m, l, acc = absorb(qs, m, l, acc, k[:, :, sl], v[:, :, sl], mask[:, sl],
+                                   hd ** -0.5)
+            sp = max(sp, float((acc / l[..., None] - dense[:, :, j * c:(j + 1) * c])
+                               .abs().max()))
+    return tp, sp
+
+
+def model_layouts_check():
+    """Phase 23: the model-sharding layouts (ROADMAP item 12b) on the card,
+    each at one rank over NCCL with its own code running, against the run
+    with no mesh in this call."""
+    import torch
+    import torch.distributed as dist
+
+    import sod_tpu_torch.cli.train as cli_train
+    from sod_tpu_torch.config import load_config
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.parallel import (make_mesh_2d, make_mesh_3d, make_mesh_pp, make_mesh_sp,
+                                        make_mesh_sptp, p3_merge_blocks, p3_split_blocks)
+    from sod_tpu_torch.train.evaluator import Evaluator
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 23 runs the layouts over NCCL on the card")
+    t0 = time.perf_counter()
+    # --tp 2 on a machine with one card: sod_tpu's ValueError, no rendezvous
+    try:
+        cli_train.main(["--config", CONFIG, "--tp", "2"])
+        raise AssertionError("cli.train --tp 2 did not raise on one card")
+    except ValueError as e:
+        print(f"  cli.train --tp 2 on {torch.cuda.device_count()} card(s): ValueError {e}; "
+              f"process group started: {dist.is_initialized()}", flush=True)
+    if dist.is_initialized():
+        raise AssertionError("cli.train --tp 2 started a process group")
+    base = load_config(CONFIG).replace(use_pallas_attention=False, compute_dtype="float32")
+    sd = random_state_dict(MaskFormer(config_from(base)), base.seed)
+    split = p3_split_blocks(sd)
+    merged = p3_merge_blocks(split)
+    if list(merged) != list(sd) or not all(torch.equal(merged[k], sd[k]) for k in sd):
+        raise AssertionError("p3_merge_blocks(p3_split_blocks(sd)) differs from sd")
+    print(f"  split {sum('.attn.qkv.' in k for k in sd)} packed qkv leaves into "
+          f"{sum('.attn.q.' in k or '.attn.k.' in k or '.attn.v.' in k for k in split)}, "
+          "merged back bit for bit", flush=True)
+    tp_gap, sp_gap = _two_rank_arithmetic(sd, base)
+    print(f"  two ranks in one process, B={TRAIN_B} x {TRAIN_N} tokens, f32: TP two head "
+          f"groups' row-parallel partials summed vs the whole block max_abs {tp_gap:.3g}; "
+          f"SP two query slices absorbing both key/value slices vs dense attention "
+          f"max_abs {sp_gap:.3g} (bound {LAYOUT_SPLIT_MAX_ABS:g}) [{CARD}]", flush=True)
+    if max(tp_gap, sp_gap) > LAYOUT_SPLIT_MAX_ABS:
+        raise AssertionError("the two-rank arithmetic differs from the whole")
+
+    batch = _to_cuda(synthetic_batch(np.random.default_rng(23), base.batch_size,
+                                     base.train_image_size, base.max_gt_masks))
+    report = {}
+    meshes = {"tp": lambda: make_mesh_2d(1, 1, "cuda"), "pp": lambda: make_mesh_pp(1, 1, "cuda"),
+              "sp": lambda: make_mesh_sp(1, 1, "cuda"),
+              "p3": lambda: make_mesh_3d(1, 1, 1, "cuda"),
+              "sptp": lambda: make_mesh_sptp(1, 1, 1, "cuda")}
+    try:
+        ref = _layout_step(base, sd, batch, None, None)
+        cfg = base.replace(pp_microbatches=2)            # the GPipe ticks with M = 2
+        runs = {}
+        for kind, make in meshes.items():
+            mesh = make()
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the {kind} mesh runs {dist.get_backend()}, not NCCL")
+            run = _layout_step(cfg, sd, batch, mesh, kind)
+            w, m, r = _layout_gaps(ref, run)
+            ok = (w <= LAYOUT_MAX_ABS and m <= LAYOUT_MAX_REL and r <= LAYOUT_MAX_REL
+                  and not run["counts"] and not ref["counts"])
+            print(f"  {kind} mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.mesh.shape)}: one f32 "
+                  f"step at B={base.batch_size}, 224 px vs no mesh: weights max_abs {w:.3g} "
+                  f"(bound {LAYOUT_MAX_ABS:g}), moments max_rel {m:.3g}, metrics max_rel "
+                  f"{r:.3g} (bound {LAYOUT_MAX_REL:g}); loss {run['metrics']['loss']:.6g} vs "
+                  f"{ref['metrics']['loss']:.6g}; port kernels launched {run['counts'] or 0} "
+                  f"[{CARD}]", flush=True)
+            if not ok:
+                raise AssertionError(f"the {kind} layout's step differs from the step with "
+                                     f"no mesh, or launched a port kernel")
+            runs[kind] = run
+            report[kind] = {"max_abs": w, "moments_rel": m, "metrics_rel": r}
+
+        # step ms of each layout and of no mesh, in turns
+        times = {k: [] for k in ["no mesh", *runs]}
+        for _ in range(LAYOUT_ROUNDS):
+            for name in times:
+                run = ref if name == "no mesh" else runs[name]
+                times[name].append(_timed_steps(run["step"], run["batch"], LAYOUT_TIMED_STEPS))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"  f32 step ms at B={base.batch_size}, {LAYOUT_ROUNDS} rounds of "
+              f"{LAYOUT_TIMED_STEPS} in turns (median): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in med.items()) + f" [{CARD}]", flush=True)
+        report["step ms"] = med
+        del runs, ref
+        _release()
+
+        # the SP Evaluator on the 400 px canvas (2501 tokens) against no mesh
+        with tempfile.TemporaryDirectory() as root:
+            write_duts_te(root, LAYOUT_EVAL_IMAGES, EVAL_SIDE // 2, EVAL_SIDE, 23)
+            ev_cfg = base.replace(dir_dataset=root)
+            model = MaskFormer(config_from(ev_cfg))
+            model.load_state_dict(sd)
+            model.cuda()
+            res = {}
+            for name, mesh in (("no mesh", None), ("sp", meshes["sp"]())):
+                res[name] = Evaluator(model, ev_cfg, config_from(ev_cfg),
+                                      batch_size=LAYOUT_EVAL_B, device="cuda",
+                                      mesh=mesh)("duts")
+            gap = max(abs(res["sp"][k] - res["no mesh"][k]) for k in res["no mesh"])
+            print(f"  SP Evaluator, {LAYOUT_EVAL_IMAGES} images on the {EVAL_SIDE} px canvas "
+                  f"(2501 tokens) at B={LAYOUT_EVAL_B}, f32: 14 metric means vs no mesh "
+                  f"max_abs {gap:.3g} (bound {LAYOUT_EVAL_MAX_ABS:g}); iou "
+                  f"{res['sp']['iou']:.6g} [{CARD}]", flush=True)
+            if gap > LAYOUT_EVAL_MAX_ABS:
+                raise AssertionError("the SP Evaluator differs from the run with no mesh")
+            report["sp evaluator"] = {"max_abs": gap}
+            del model
+            _release()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    phase(23, "model-sharding layouts on the card (1 rank, NCCL): "
+              + ", ".join(f"{k} max_abs {report[k]['max_abs']:.3g}"
+                          for k in meshes) + f" vs no mesh; step ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in report["step ms"].items())
+              + f"; SP Evaluator max_abs {report['sp evaluator']['max_abs']:.3g}; no port "
+              f"kernel launched; --tp 2 raises on one card; {time.perf_counter() - t0:.1f} s "
+              f"[{CARD}]")
+    return report
+
+
 def main():
     card_check()
     import torch
@@ -4545,6 +4803,7 @@ def main():
     model_options_check()
     training_options_check()
     data_mesh_check()
+    model_layouts_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)

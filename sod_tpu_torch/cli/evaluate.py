@@ -4,6 +4,7 @@
         --dataset_name {duts,ecssd,dut_omron} [--p_state_dict X.pt] \\
         [--batch_size 16] [--cost_type iou|f_measure|f_max|mae] \\
         [--scale_factor 2] [--debug] [--device cuda] [--gpu_id 0] [--use_gpu True]
+        [--n_devices N] [--tp T] [--sp S]
 
 yaml -> Config, seeds, the model (weights from a ``.pt`` state dict in the
 reference layout or a checkpoint of the port's Trainer, else seeded random
@@ -12,8 +13,11 @@ weights; an orbax checkpoint directory is refused, as in the service), one
 per-image CSV under ``{dir_root}/eval/{experiment}``.  ``--n_devices N``
 above 1 spawns N data-parallel ranks (rank r on ``cuda:r`` over NCCL, or on
 the CPU over gloo), each running its rows of every batch; rank 0 prints and
-writes.  ``--tp`` and ``--sp`` (the model-sharding layouts) are refused:
-ROADMAP item 12b.
+writes.  ``--tp`` and ``--sp`` add the model-sharding layouts (``sod_tpu``'s
+``make_mesh_2d`` / ``_sp`` / ``_sptp``; the plain PyTorch path): N x tp x sp
+ranks are spawned, the heads over ``--tp`` ranks, the canvas tokens round a
+ring of ``--sp``; more ranks than cards raise ``sod_tpu``'s ``ValueError``
+before any rendezvous.
 """
 from __future__ import annotations
 
@@ -52,33 +56,43 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel ranks (default: one); batch_size must "
                         "divide evenly")
-    # sod_tpu's model-sharding flags: refused (ROADMAP item 12b)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (parallel/tp.py; plain PyTorch path)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ring size (ring attention over the canvas "
+                        "tokens, parallel/sp.py; with --tp the (data, seq, model) mesh, "
+                        "parallel/sptp.py)")
     return p
 
 
 def _rank_main(rank: int, argv) -> None:
-    """One spawned rank of ``--n_devices``."""
-    from sod_tpu_torch.parallel.mesh import make_mesh, rank_device
+    """One spawned rank of ``--n_devices`` (and ``--tp/--sp``): the mesh of
+    ``sod_tpu/cli/evaluate.py:84-97``, as the Trainer picks it."""
+    from types import SimpleNamespace
+
+    from sod_tpu_torch.parallel.layouts import mesh_from_config
+    from sod_tpu_torch.parallel.mesh import rank_device
 
     args = build_argparser().parse_args(argv)
     device = rank_device(args.device, rank)
-    _evaluate(args, device, make_mesh(args.n_devices, device))
+    axes = SimpleNamespace(mesh_data_axis=args.n_devices or 1, mesh_model_axis=args.tp,
+                           mesh_pipe_axis=1, mesh_seq_axis=args.sp)
+    _evaluate(args, device, mesh_from_config(axes, device))
 
 
 def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    for flag in ("tp", "sp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag} is not ported to sod_tpu_torch: the model-sharding "
-                "layouts are ROADMAP item 12b")
-    if (args.n_devices or 1) > 1:
+    if args.tp > 1 or args.sp > 1:
+        from sod_tpu_torch.parallel.layouts import cli_ranks
+
+        _, n = cli_ranks(args.n_devices, args.device, tp=args.tp, sp=args.sp)
+    else:
+        n = args.n_devices or 1
+    if n > 1:
         from sod_tpu_torch.parallel.mesh import spawn_cli
 
-        spawn_cli(_rank_main, argv, args.n_devices, args.device)
+        spawn_cli(_rank_main, argv, n, args.device)
         return {}
     return _evaluate(args, args.device)
 

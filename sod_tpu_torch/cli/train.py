@@ -3,6 +3,7 @@
     python -m sod_tpu_torch.cli.train --config configs/<yaml> \\
         [--seed N] [--suffix S] [--resume] [--p_state_dict ckpt.pt] [--device cuda]
         [--gpu_id 0] [--async-checkpoint] [--n_devices N] [--fsdp zero1|full]
+        [--tp T] [--pp P] [--sp S]
 
 yaml -> Config, seeds, ``Trainer``, epochs each followed by the canvas
 evaluation of the benchmarks on disk, ``--resume`` from this experiment's
@@ -14,7 +15,12 @@ one under ``--device cpu``) above 1 trains data-parallel: N rank processes
 are spawned, rank r on ``cuda:r`` over NCCL (or on the CPU over gloo), each
 with its rows of every batch; ``--fsdp zero1|full`` shards the optimizer
 moments, or the weights too, over them.  ``--tp``, ``--pp`` and ``--sp``
-(the model-sharding layouts) are refused: ROADMAP item 12b.
+(or the config's ``mesh_{model,pipe,seq}_axis``) add the model-sharding
+layouts (``parallel/``; the plain PyTorch path): N x tp x pp x sp ranks are
+spawned (N then defaults to the cards left after the other axes), ``--tp``
+with ``--pp`` runs p3 and ``--tp`` with ``--sp`` sptp, as in ``sod_tpu``;
+more ranks than cards raise ``sod_tpu``'s ``ValueError`` before any
+rendezvous.
 """
 from __future__ import annotations
 
@@ -43,10 +49,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the device to train on (rank r of --n_devices on cuda:r)")
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel ranks (default: every card; 1 on the CPU)")
-    # sod_tpu's model-sharding flags: refused (ROADMAP item 12b)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron, parallel/tp.py; total "
+                        "ranks = n_devices x tp x pp x sp; plain PyTorch path)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (GPipe over the ViT blocks, parallel/pp.py; "
+                        "with --tp the (data, pipe, model) mesh, parallel/p3.py)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ring size (ring attention, parallel/sp.py; "
+                        "with --tp the (data, seq, model) mesh, parallel/sptp.py; "
+                        "exclusive with --pp)")
     p.add_argument("--fsdp", type=str, default=None, choices=["zero1", "full"],
                    help="shard the AdamW moments (zero1), or the weights too "
                         "(full; plain PyTorch path), over the ranks; needs "
@@ -67,6 +79,12 @@ def _config(args):
         overrides["suffix"] = args.suffix
     if args.fsdp is not None:
         overrides["fsdp"] = args.fsdp
+    for flag, key in (("tp", "mesh_model_axis"), ("pp", "mesh_pipe_axis"),
+                      ("sp", "mesh_seq_axis")):
+        if getattr(args, flag) > 1:
+            overrides[key] = getattr(args, flag)
+    if args.n_devices:
+        overrides["mesh_data_axis"] = args.n_devices
     return load_config(args.config, overrides)
 
 
@@ -96,32 +114,29 @@ def _train(args, device: str, mesh=None) -> None:
 
 
 def _rank_main(rank: int, argv) -> None:
-    """One spawned rank of ``--n_devices``."""
-    from sod_tpu_torch.parallel.mesh import make_mesh, rank_device
+    """One spawned rank of ``--n_devices`` (and ``--tp/--pp/--sp``)."""
+    from sod_tpu_torch.parallel.layouts import mesh_from_config
+    from sod_tpu_torch.parallel.mesh import rank_device
 
     args = build_argparser().parse_args(argv)
     device = rank_device(args.device, rank)
-    _train(args, device, make_mesh(args.n_devices, device))
+    _train(args, device, mesh_from_config(_config(args), device))
 
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    for flag in ("tp", "pp", "sp"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag} is not ported to sod_tpu_torch: the model-sharding "
-                "layouts are ROADMAP item 12b")
-    import torch
+    from sod_tpu_torch.parallel.layouts import cli_ranks
 
-    n = args.n_devices
-    if n is None:
-        n = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+    # the flags win; else the config's mesh axes (sod_tpu/cli/train.py:96-135)
+    cfg = _config(args)
+    n_data, n = cli_ranks(args.n_devices, args.device, cfg.mesh_model_axis,
+                          cfg.mesh_pipe_axis, cfg.mesh_seq_axis)
     if n > 1:
         from sod_tpu_torch.parallel.mesh import spawn_cli
 
         if args.n_devices is None:
-            argv = [*argv, "--n_devices", str(n)]
+            argv = [*argv, "--n_devices", str(n_data)]
         spawn_cli(_rank_main, argv, n, args.device)
         return
     _train(args, args.device)

@@ -60,21 +60,12 @@ class MaskFormerConfig:
         return 6 if self.arch != "vit_small" else self.vit.n_heads
 
 
-# (Config field, the one value the port runs, where the rest is queued):
-# the model-sharding layouts, item 12's second half
-_LIVE_ONLY = (
-    ("mesh_model_axis", 1, "ROADMAP item 12b, parallel/tp.py"),
-    ("mesh_pipe_axis", 1, "ROADMAP item 12b, parallel/pp.py"),
-    ("mesh_seq_axis", 1, "ROADMAP item 12b, parallel/sp.py"),
-)
-
-
 def config_from(cfg) -> MaskFormerConfig:
     """MaskFormerConfig from the flat experiment ``Config`` (any object
-    with its fields).  Raises ``NotImplementedError`` for a setting the port
-    does not run yet (the model-sharding layouts: a model, pipe or seq mesh
-    axis) instead of ignoring it; ``fsdp`` and ``mesh_data_axis`` are read
-    by the Trainer (``parallel/``).
+    with its fields).  ``fsdp``, ``pp_microbatches`` and the mesh axes
+    (``mesh_data_axis``, ``mesh_model_axis``, ``mesh_pipe_axis``,
+    ``mesh_seq_axis``) are read by the Trainer (``parallel/``), as in
+    ``sod_tpu``.
     ``arch``, ``use_binary_classifier``, ``learnable_pixel_decoder``,
     ``lateral_connection`` and ``loss_every_decoder_layer`` (as
     ``return_intermediate``) are carried as ``sod_tpu`` carries them;
@@ -88,12 +79,6 @@ def config_from(cfg) -> MaskFormerConfig:
     ``grad_accum_mode`` by the train step, ``async_checkpoint`` by the
     Trainer and ``use_copy_paste`` by the dataset (as in ``sod_tpu``), not
     by the model."""
-    for key, live, where in _LIVE_ONLY:
-        value = getattr(cfg, key, live)
-        if value != live:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported to sod_tpu_torch ({where}); "
-                f"the port runs {key}={live!r}")
     return MaskFormerConfig(
         n_queries=cfg.n_queries, n_decoder_layers=cfg.n_decoder_layers,
         scale_factor=cfg.scale_factor,
@@ -153,16 +138,22 @@ class MLP(nn.Module):
 
 
 def forward_transformer_decoder(model: "MaskFormer", memory: torch.Tensor,
-                                memory_mask: Optional[torch.Tensor] = None
+                                memory_mask: Optional[torch.Tensor] = None,
+                                layer_apply: Optional[Callable] = None
                                 ) -> torch.Tensor:
     """Queries through every decoder layer: [B, L, Q, D], each layer's
-    output passed through the decoder's final LayerNorm."""
+    output passed through the decoder's final LayerNorm.
+
+    :param layer_apply: optional ``(layer, tgt, memory, query_pos,
+        memory_mask) -> tgt`` run in place of each layer's forward (the
+        tensor-parallel layer, ``parallel/tp.py``)."""
     b, _, d = memory.shape
     query_pos = model.query_embed.to(memory.dtype).expand(b, -1, d)
     tgt = torch.zeros_like(query_pos)
     per_layer = []
     for layer in model.decoder.layers:
-        tgt = layer(tgt, memory, query_pos, memory_mask)
+        tgt = (layer(tgt, memory, query_pos, memory_mask) if layer_apply is None
+               else layer_apply(layer, tgt, memory, query_pos, memory_mask))
         per_layer.append(model.decoder.norm(tgt))
     return torch.stack(per_layer, dim=1)
 
@@ -205,13 +196,16 @@ class MaskFormer(nn.Module):
     def forward(self, x: torch.Tensor, fused: bool = False,
                 encoder_apply: Optional[Callable] = None,
                 train: bool = False,
-                encoder_only: bool = False) -> Dict[str, torch.Tensor]:
+                encoder_only: bool = False,
+                layer_apply: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """:param x: [B, H, W, 3] normalized images.
         :param fused: run the ViT encoder's blocks through the fused kernel
             (the ResNet ignores it, as in ``sod_tpu``).
         :param encoder_apply: optional ``(encoder, x) -> [B, 1+N, D]``
             normed last-layer tokens used in place of the ViT encoder; must
-            be the same math as ``vit_apply``.
+            be the same math as ``vit_apply`` (the model-sharding layouts'
+            encoders, ``parallel/``).
+        :param layer_apply: see ``forward_transformer_decoder``.
         :param train: the ResNet's BatchNorm on the batch's statistics; the
             output then carries ``batch_stats``, ``{bn path: {"mean",
             "var"}}`` for ``resnet.merge_bn_stats`` (no-op for the ViT).
@@ -236,7 +230,7 @@ class MaskFormer(nn.Module):
         if encoder_only:
             return {"patch_tokens": memory.reshape(memory.shape[0], *grid, -1)}
 
-        queries = forward_transformer_decoder(self, memory)
+        queries = forward_transformer_decoder(self, memory, layer_apply=layer_apply)
         upsampled = forward_pixel_decoder(memory, grid, self.cfg.scale_factor)
         out = _heads(self, queries, upsampled)
         if train and stats:
@@ -281,7 +275,9 @@ def maskformer_apply_canvas(model: MaskFormer, x: torch.Tensor,
                             pos_embed_override: torch.Tensor,
                             grid_sizes: torch.Tensor, fused: bool = False,
                             scale_factor: Optional[int] = None,
-                            last_layer_only: bool = False
+                            last_layer_only: bool = False,
+                            encoder_apply: Optional[Callable] = None,
+                            layer_apply: Optional[Callable] = None
                             ) -> Dict[str, torch.Tensor]:
     """Fixed-canvas forward of variable-size images (twin of
     ``sod_tpu``'s ``maskformer_apply_canvas``): each image sits top-left
@@ -298,16 +294,24 @@ def maskformer_apply_canvas(model: MaskFormer, x: torch.Tensor,
         model's own; a parameter-free resize, so evaluation may change it).
     :param last_layer_only: run the heads on the last decoder layer only
         (L = 1), the one evaluation reads.
+    :param encoder_apply: optional ``(encoder, x, token_mask=,
+        pos_embed_override=) -> [B, 1+N, D]`` in place of ``vit_apply`` (the
+        model-sharding layouts' encoders, ``parallel/``).
+    :param layer_apply: see ``forward_transformer_decoder``.
     :return: ``mask_pred`` [B, L, Q, s*G_h, s*G_w] over the whole canvas,
         ``objectness`` [B, L, Q, 1] (binary-classifier head only),
         ``features`` [B, D].
     """
     require_vit_canvas(model.cfg)
-    tokens = vit_apply(model.encoder, x, fused=fused, token_mask=token_mask,
-                       pos_embed_override=pos_embed_override)
+    if encoder_apply is None:
+        tokens = vit_apply(model.encoder, x, fused=fused, token_mask=token_mask,
+                           pos_embed_override=pos_embed_override)
+    else:
+        tokens = encoder_apply(model.encoder, x, token_mask=token_mask,
+                               pos_embed_override=pos_embed_override)
     memory = tokens[:, 1:]
-    queries = forward_transformer_decoder(model, memory,
-                                          memory_mask=token_mask[:, 1:])
+    queries = forward_transformer_decoder(model, memory, memory_mask=token_mask[:, 1:],
+                                          layer_apply=layer_apply)
     b, n, d = memory.shape
     p = model.cfg.vit.patch_size
     gh_c, gw_c = x.shape[1] // p, x.shape[2] // p

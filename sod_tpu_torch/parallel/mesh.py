@@ -78,32 +78,35 @@ def _backend(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def make_mesh(n_data: Optional[int] = None, device="cuda"):
-    """A 1-D data-parallel mesh of ``n_data`` ranks (default: every rank of
-    the running group, else every card) on ``device``'s type.
+def default_world(device_type: str) -> int:
+    """The ranks a mesh takes when its size is not given: the running
+    group's, else the spawned ranks', else every card (or core)."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", device_limit(device_type)))
+
+
+def join_mesh(dims, names, device, label: str):
+    """A ``DeviceMesh`` of ``dims`` ranks named ``names`` on ``device``'s type.
 
     In a process that ``spawn_ranks`` started, this joins its group; in any
     other process a mesh of one rank starts a group of its own, and more
-    ranks raise.  Raises ``sod_tpu``'s ``ValueError`` when ``n_data``
-    exceeds the cards, before any rendezvous."""
+    ranks raise (``label`` names the call in that message).  Rank r is
+    ``dims``' row-major rank r, as ``sod_tpu``'s ``devices.reshape(dims)``
+    places device r."""
     kind = torch.device(device).type
-    have = device_limit(kind)
-    if n_data is None:
-        n_data = (dist.get_world_size() if dist.is_initialized()
-                  else int(os.environ.get("WORLD_SIZE", have)))
-    if n_data > have:
-        raise ValueError(f"requested {n_data} devices, have {have}")
+    n = int(np.prod(dims))
     backend = _backend(kind)
     if not dist.is_initialized():
         if "SOD_RANK" in os.environ:
             rank, world = int(os.environ["SOD_RANK"]), int(os.environ["WORLD_SIZE"])
             init = f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}"
-        elif n_data == 1:
+        elif n == 1:
             rank, world, init = 0, 1, f"tcp://127.0.0.1:{free_port()}"
         else:
             raise ValueError(
-                f"make_mesh({n_data}) needs {n_data} rank processes: start them "
-                "with spawn_ranks (the CLIs' --n_devices)")
+                f"{label} needs {n} rank processes: start them with spawn_ranks "
+                "(the CLIs' --n_devices, --tp, --pp, --sp)")
         if kind == "cuda":
             torch.cuda.set_device(rank)
         dist.init_process_group(backend, init_method=init, rank=rank,
@@ -111,14 +114,71 @@ def make_mesh(n_data: Optional[int] = None, device="cuda"):
     if dist.get_backend() != backend:
         raise ValueError(f"a mesh on {kind} runs over {backend}, and the process "
                          f"group runs {dist.get_backend()}")
-    if dist.get_world_size() != n_data:
-        raise ValueError(f"requested {n_data} devices, the process group has "
+    if dist.get_world_size() != n:
+        raise ValueError(f"requested {n} devices, the process group has "
                          f"{dist.get_world_size()} ranks")
     if kind == "cuda":
         torch.cuda.set_device(dist.get_rank())
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(kind, (n_data,), mesh_dim_names=("data",))
+    mesh = init_device_mesh(kind, tuple(dims), mesh_dim_names=tuple(names))
+    if len(names) > 1:
+        # one collective on every axis' group first: NCCL wants every rank
+        # of a group in its first call, and the pipe's first point-to-point
+        # exchange involves two stages only
+        for name in names:
+            dist.barrier(group=mesh.get_group(name))
+    return mesh
+
+
+def make_mesh(n_data: Optional[int] = None, device="cuda"):
+    """A 1-D data-parallel mesh of ``n_data`` ranks (default: every rank of
+    the running group, else every card) on ``device``'s type (``join_mesh``).
+    Raises ``sod_tpu``'s ``ValueError`` when ``n_data`` exceeds the cards,
+    before any rendezvous."""
+    kind = torch.device(device).type
+    have = device_limit(kind)
+    if n_data is None:
+        n_data = default_world(kind)
+    if n_data > have:
+        raise ValueError(f"requested {n_data} devices, have {have}")
+    return join_mesh((n_data,), ("data",), device, f"make_mesh({n_data})")
+
+
+def make_mesh_nd(n_data: Optional[int], sizes, names, device, what: str):
+    """``sod_tpu``'s ``make_mesh_2d`` / ``_pp`` / ``_sp`` / ``_3d`` / ``_sptp``:
+    a ``("data",) + names`` mesh of ``n_data`` x ``sizes`` ranks, ``n_data``
+    None taking the ranks left after the other axes, with ``sod_tpu``'s
+    ``ValueError``s before any rendezvous (``what``: the axes' names in the
+    first one, as ``n_model`` or ``n_pipe/n_model``)."""
+    if any(s < 1 for s in sizes):
+        got = "/".join(str(s) for s in sizes)
+        raise ValueError(f"{what} must be >= 1, got {got}")
+    kind = torch.device(device).type
+    have = device_limit(kind)
+    inner = int(np.prod(sizes))
+    if n_data is None:
+        n_data = default_world(kind) // inner
+    total = n_data * inner
+    if total > have or total < 1:
+        dims = "x".join(str(s) for s in (n_data, *sizes))
+        raise ValueError(f"requested {dims} devices, have {have}")
+    return join_mesh((n_data, *sizes), ("data", *names), device,
+                     "x".join(str(s) for s in (n_data, *sizes)) + " mesh")
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s ``axis`` (1 without a mesh or that axis)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate on ``mesh``'s ``axis`` (0 without it)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(axis)
 
 
 def _rank_main(rank: int, world: int, port: int, fn: Callable, args) -> None:
@@ -178,7 +238,7 @@ def data_group(mesh):
 
 def is_main(mesh) -> bool:
     """Rank 0 of the mesh (or no mesh): the rank that writes files."""
-    return data_rank(mesh) == 0
+    return mesh is None or all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
 
 
 def batch_sharding(mesh, batch_size: int, accum_steps: int = 1,
@@ -217,12 +277,13 @@ def shard_batch(batch: dict, mesh, accum_steps: int = 1) -> dict:
 
 @torch.no_grad()
 def replicated(module: torch.nn.Module, mesh) -> torch.nn.Module:
-    """Broadcast ``module``'s parameters and buffers from rank 0, in place:
-    every rank then starts from the same weights."""
+    """Broadcast ``module``'s parameters and buffers from the mesh's rank 0
+    to every rank of it, in place: every rank then starts from the same
+    weights."""
     if mesh is not None:
+        src = int(mesh.mesh.reshape(-1)[0])
         for t in [*module.parameters(), *module.buffers()]:
-            dist.broadcast(t.data, src=dist.get_global_rank(data_group(mesh), 0),
-                           group=data_group(mesh))
+            dist.broadcast(t.data, src=src)
     return module
 
 

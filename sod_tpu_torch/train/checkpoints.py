@@ -14,9 +14,11 @@ and moments in place, so ``save`` first copies them to the host on the
 caller's thread, and only ``torch.save`` and the rename run on the writer
 thread.
 
-Under a data mesh the Trainer gathers the whole state on every rank
-(``StateLayout.full_state``) and rank 0 writes it: the file is the same
-under every layout, and any layout resumes it.
+Under a mesh the Trainer gathers the whole state on every rank
+(``StateLayout.full_state``: the data shards gathered, the model shards and
+pipe stages merged back into the packed layout) and rank 0 writes it: the
+file is the same under every layout, data or model-sharding, and any layout
+resumes it (``StateLayout.load_full_state`` cuts it again).
 """
 from __future__ import annotations
 

@@ -25,7 +25,11 @@ Under a data ``mesh`` (``parallel/mesh.py``, one process per rank) each
 rank decodes and runs its rows of every canvas batch, and the per-image
 metrics of every rank are gathered after each batch, so every rank returns
 the single-device numbers, a short final batch included; rank 0 writes the
-CSV and renders the visualizer's images.
+CSV and renders the visualizer's images.  On a mesh with a ``model`` axis
+each call runs the tensor-parallel forward on this rank's shards of the
+model's whole weights, with a ``seq`` axis the encoder's ring (with the
+canvas key masks), with both sptp (``parallel.layouts.eval_layout``); a
+``pipe`` axis runs the whole weights, as in ``sod_tpu``.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from sod_tpu_torch.models.maskformer import (MaskFormerConfig, config_from, mask
                                              require_vit_canvas)
 from sod_tpu_torch.models.vit import pos_embed_canvas_device
 from sod_tpu_torch.ops.resize import _resize_matrix, bilinear_separable
+from sod_tpu_torch.parallel.layouts import eval_layout
 from sod_tpu_torch.parallel.mesh import (all_gather_into, batch_sharding, data_group, data_size,
                                          is_main,
                                          replicated)
@@ -129,8 +134,9 @@ class Evaluator:
             ``eval_grid``), called every ``vis_every`` batches (ref
             evaluator pyc 240-269 renders grids every 250 batches).
         :param device: where evaluation runs (default: the model's device).
-        :param mesh: a data mesh (``parallel.make_mesh``) whose ranks split
-            every batch; the model's weights are broadcast from rank 0."""
+        :param mesh: a mesh (``parallel.make_mesh``, ``make_mesh_2d``,
+            ``make_mesh_sp``, ...) whose data ranks split every batch; the
+            model's weights are broadcast from rank 0."""
         self.model = model
         self.visualizer = visualizer
         self.vis_every = max(1, vis_every)
@@ -154,6 +160,7 @@ class Evaluator:
         self._n_data = data_size(mesh)
         self._check_batch(batch_size)
         replicated(model, mesh)
+        self._forward = eval_layout(cfg, self.mcfg, model, mesh)
         self._canvas_cache: Dict = {}
 
     def _check_batch(self, batch_size: int) -> None:
@@ -215,9 +222,12 @@ class Evaluator:
         image, token_mask, pos_embed = canvas_inputs(self.model, image_u8, grid_sizes,
                                                      compute)
         fused = getattr(self.cfg, "use_fused_eval", False)
-        out = maskformer_apply_canvas(self.model, image, token_mask, pos_embed,
+        model, apply_fn = self._forward
+        hooks = ({} if apply_fn is None else
+                 {"encoder_apply": apply_fn.encoder_apply, "layer_apply": apply_fn.layer_apply})
+        out = maskformer_apply_canvas(model, image, token_mask, pos_embed,
                                       grid_sizes, fused=fused,
-                                      scale_factor=scale_factor, last_layer_only=True)
+                                      scale_factor=scale_factor, last_layer_only=True, **hooks)
         gt = gt_u8.float()
         masks = out["mask_pred"][:, -1].float()                       # [B, Q, sG, sG]
         obj = out["objectness"][:, -1, :, 0].float()
@@ -276,6 +286,8 @@ class Evaluator:
                                             img_size or cfg.eval_image_size)
         pad = lambda v: -(-v // p) * p  # noqa: E731
         dataset.return_raw = True
+        # this rank's shards of the current weights (the model itself on a data mesh)
+        self._forward = eval_layout(cfg, self.mcfg, self.model, self.mesh)
         local_b = batch_size // self._n_data
         collate = functools.partial(collate_canvas, batch_size=local_b,
                                     canvas_hw=(pad(max_h), pad(max_w)), patch_size=p)

@@ -48,6 +48,10 @@ every micro-batch) and the step computes ``sod_tpu``'s global-batch step:
   this rank's tensors and the layout publishes the weights;
 * the metrics are all-reduced, so every rank returns the same values.
 
+Under a model-sharding layout (``apply_fn``: TP, PP, SP, p3, sptp) the
+forward is the layout's, ``layout`` holds this rank's shards and reduces as
+the layout says (``parallel/fsdp.py``); the rest of the step is the same.
+
 ``make_eval_step``: the last layer's masks and objectness, for the
 visualizer hooks.
 """
@@ -76,7 +80,8 @@ _DIAG = ("avg_dice_loss", "avg_ranking_loss", "avg_classification_loss", "avg_io
 
 
 def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
-                    accum_steps: int = 1, mode: str = "averaged", layout=None
+                    accum_steps: int = 1, mode: str = "averaged", layout=None,
+                    apply_fn: Optional[Callable] = None
                     ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """Build ``train_step(batch) -> metrics`` updating ``model`` in place.
 
@@ -86,7 +91,10 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
 
     :param layout: a ``parallel.fsdp.StateLayout`` of ``model`` over a data
         mesh, whose ``tensors`` ``optimizer`` steps on; the batch is then
-        this rank's rows (``parallel.mesh.batch_sharding``)."""
+        this rank's rows (``parallel.mesh.batch_sharding``).
+    :param apply_fn: ``(model, x, train=) -> outputs`` in place of the
+        model's forward: a model-sharding layout's (``parallel/``,
+        ``make_tp_apply`` and the others), ``layout`` holding its shards."""
     if mode not in ("averaged", "exact"):
         raise ValueError(f"grad_accum mode must be 'averaged' or 'exact', "
                          f"got {mode!r}")
@@ -99,6 +107,8 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
         if x.dtype == torch.uint8:
             x = normalize_device(x)
         with batch_over(mesh) if mesh is not None else contextlib.nullcontext():
+            if apply_fn is not None:
+                return apply_fn(model, x.to(compute_dtype), train=True)
             return model(x.to(compute_dtype), train=True)
 
     def loss_fn(batch):
@@ -276,12 +286,10 @@ def make_eval_step(cfg, model: MaskFormer, apply_fn: Optional[Callable] = None,
 
     :param fused: the encoder through the fused inference path (K1), as the
         service runs it; an f32 ``compute_dtype`` runs it unfused.
-    :param apply_fn: ``sod_tpu``'s hook for the model-sharding forwards
-        (ROADMAP item 12b): refused."""
-    if apply_fn is not None:
-        raise NotImplementedError(
-            "apply_fn is the model-sharding forwards' hook; the tp, pp and sp "
-            "layouts are not ported to sod_tpu_torch (ROADMAP item 12b)")
+    :param apply_fn: ``(model, x) -> outputs`` in place of the model's
+        forward (``fused`` unread): the same forward as the train step's
+        under a model-sharding layout (``parallel/``), which the Trainer's
+        visualizer hook runs on the rank's whole batch."""
     compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                      else torch.float32)
 
@@ -289,7 +297,10 @@ def make_eval_step(cfg, model: MaskFormer, apply_fn: Optional[Callable] = None,
         with torch.no_grad():
             if image.dtype == torch.uint8:
                 image = normalize_device(image)
-            out = model(image.to(compute_dtype), fused=fused)
+            if apply_fn is not None:
+                out = apply_fn(model, image.to(compute_dtype))
+            else:
+                out = model(image.to(compute_dtype), fused=fused)
             return {"mask_pred": out["mask_pred"][:, -1].float(),
                     "objectness": out["objectness"][:, -1, :, 0].float()}
 

@@ -39,6 +39,17 @@ gathered under any layout, so any layout resumes any other) and
 ``best_scores.json``.  Under ``full`` the visualizer's forward runs unfused
 on the gathered weights, as in ``sod_tpu``.  ``fsdp`` without a mesh raises
 ``sod_tpu``'s error.
+
+The model-sharding layouts (``parallel/layouts.py``): the mesh comes from
+``mesh_{data,model,pipe,seq}_axis`` as ``sod_tpu`` picks it (p3 when model
+and pipe are both above 1, sptp when model and seq are), or is given.  Each
+rank keeps its shards (``StateLayout(mp=...)``), the step runs the layout's
+forward (``apply_fn``: TP, GPipe with ``pp_microbatches`` micro-batches,
+the ring, or their compositions), and the visualizer hook runs that forward
+on the rank's whole batch, as ``sod_tpu``'s does.  Evaluation and the
+checkpoints read the whole weights (``StateLayout.gathered``): the
+Evaluator runs on the same mesh, and every checkpoint is the one packed
+state dict, so a run resumes under any layout.
 """
 from __future__ import annotations
 
@@ -56,9 +67,9 @@ from sod_tpu_torch.data.factory import get_dataset
 from sod_tpu_torch.data.loader import DataLoader, collate_train
 from sod_tpu_torch.metrics.average_meter import AverageMeter
 from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
-from sod_tpu_torch.parallel.fsdp import StateLayout, assert_fsdp_compatible
-from sod_tpu_torch.parallel.mesh import (batch_sharding, data_group, data_size, is_main, make_mesh,
-                                         replicated)
+from sod_tpu_torch.parallel.fsdp import assert_fsdp_compatible
+from sod_tpu_torch.parallel.layouts import mesh_from_config, train_layout
+from sod_tpu_torch.parallel.mesh import batch_sharding, data_size, is_main, replicated
 from sod_tpu_torch.train.checkpoints import AsyncSaver, restore_checkpoint, save_checkpoint
 from sod_tpu_torch.train.evaluator import Evaluator
 from sod_tpu_torch.train.logging import MetricLogger
@@ -95,17 +106,18 @@ class Trainer:
         :param visualizer: a ``utils.visualizer.Visualizer``, called with the
             batch and the current weights' last-layer outputs on its first
             image every ``len(loader) // 10`` iterations.
-        :param mesh: a data mesh (``parallel.make_mesh``) to train over, this
-            process being one of its ranks; else ``cfg.mesh_data_axis`` > 1
-            makes one on ``device``.
+        :param mesh: a mesh (``parallel.make_mesh``, ``make_mesh_2d``, ...) to
+            train over, this process being one of its ranks; else the
+            config's mesh axes make one on ``device`` (``mesh_from_config``).
         After each epoch the Trainer evaluates ``cfg.benchmarks`` (default
         ECSSD, DUTS-TE and DUT-OMRON)."""
         self.cfg = cfg
         self.device = torch.device(device)
         self.mcfg = mcfg or config_from(cfg)
-        if mesh is None and cfg.mesh_data_axis > 1:
-            mesh = make_mesh(cfg.mesh_data_axis, self.device)
-        # sod_tpu's checks: fsdp needs a data axis > 1, full the plain path
+        if mesh is None:
+            mesh = mesh_from_config(cfg, self.device)
+        # sod_tpu's checks, before anything is built: fsdp needs a data axis
+        # > 1, full the plain path and no model, pipe or seq axis
         assert_fsdp_compatible(cfg, mesh)
         self.mesh = mesh
         self.is_main = is_main(mesh)
@@ -133,10 +145,9 @@ class Trainer:
         self.model.load_state_dict(state_dict if state_dict is not None
                                    else random_state_dict(self.model, cfg.seed))
         self.model.to(self.device)
-        # every rank starts from rank 0's weights
+        # every rank starts from rank 0's weights, then keeps its shards
         replicated(self.model, mesh)
-        self.layout = (StateLayout(self.model, mesh, cfg.fsdp)
-                       if mesh is not None else None)
+        self._apply_fn, self.layout = train_layout(cfg, self.mcfg, self.model, mesh)
 
         # ceil: the loader runs drop_last=False (padded collate)
         n_iters = max(1, -(-len(self.dataset) // cfg.batch_size))
@@ -146,7 +157,7 @@ class Trainer:
             n_iters_per_epoch=n_iters)
         self.train_step = make_train_step(
             cfg, self.model, self.optimizer, accum_steps=accum,
-            mode=cfg.grad_accum_mode, layout=self.layout)
+            mode=cfg.grad_accum_mode, layout=self.layout, apply_fn=self._apply_fn)
 
         self._ckpt_saver = AsyncSaver() if cfg.async_checkpoint else None
         self.logger = MetricLogger(self.dir_ckpt, name=self.experim_name)
@@ -165,7 +176,7 @@ class Trainer:
         return the next epoch to run."""
         self.wait_for_checkpoints()     # restore must see a finished write
         if self.mesh is not None:       # ... rank 0's
-            dist.barrier(group=data_group(self.mesh))
+            dist.barrier()
         state = restore_checkpoint(path or self.latest_path,
                                    map_location=self.device)
         if self.layout is None:
@@ -213,10 +224,19 @@ class Trainer:
                    arrays: Dict[str, torch.Tensor]) -> None:
         """The visualizer hook on the batch's first image (ref trainer pyc
         134-164), rank 0's first row under a mesh; under ``fsdp: full`` the
-        forward runs unfused on the gathered weights."""
+        forward runs unfused on the gathered weights; under a model-sharding
+        layout every rank runs the step's forward on its whole batch
+        (``sod_tpu``'s ``test_pp_trainer_vis_step_uses_stage_forward``)."""
         if self._vis_step is None:
             full = self.layout is not None and self.layout.level == "full"
-            self._vis_step = make_eval_step(self.cfg, self.model, fused=not full)
+            self._vis_step = make_eval_step(self.cfg, self.model, apply_fn=self._apply_fn,
+                                            fused=not full)
+        if self._apply_fn is not None:
+            outs = {k: v[:1] for k, v in self._vis_step(arrays["image"]).items()}
+            if self.is_main:
+                self.visualizer(num_epoch, it, batch,
+                                outputs={k: v.cpu().numpy() for k, v in outs.items()})
+            return
         with self._whole_weights():
             if not self.is_main:
                 return

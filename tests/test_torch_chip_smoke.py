@@ -228,3 +228,28 @@ def test_data_mesh_phase_is_run_and_fails_without_a_card():
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         cs.data_mesh_check()
     assert not torch.distributed.is_initialized()
+
+
+def test_model_layouts_phase_is_run_and_fails_without_a_card():
+    """Phase 23 (the model-sharding layouts at one rank over NCCL: TP, PP,
+    SP, p3 and sptp steps against the step with no mesh, the two-rank
+    arithmetic in one process, the SP Evaluator, ``cli.train --tp 2``) is
+    part of ``main`` after phase 22; off the card it fails before any
+    process group starts, instead of falling back to gloo on the CPU."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+
+    main = inspect.getsource(cs.main)
+    assert main.index("data_mesh_check()") < main.index("model_layouts_check()")
+    source = inspect.getsource(cs.model_layouts_check)
+    for part in ("make_mesh_2d(1, 1", "make_mesh_pp(1, 1", "make_mesh_sp(1, 1",
+                 "make_mesh_3d(1, 1, 1", "make_mesh_sptp(1, 1, 1", "pp_microbatches=2",
+                 "p3_merge_blocks(split)", "_two_rank_arithmetic", "Evaluator", "--tp"):
+        assert part in source, part
+    assert cs.LAYOUT_MAX_ABS == 2e-5 and cs.LAYOUT_MAX_REL == 1e-4
+    with pytest.raises((RuntimeError, AssertionError, ValueError)):
+        cs.model_layouts_check()
+    assert not torch.distributed.is_initialized()

@@ -508,24 +508,31 @@ def test_cli_loads_a_checkpoint_of_the_trainer(tmp_path, rng, capsys, two_thread
     assert metrics == Evaluator(model, cfg, batch_size=4, device="cpu")("duts")
 
 
-@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"]])
+@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"],
+                                   ["--tp", "2", "--sp", "2"], ["--sp", "9999"]])
 def test_cli_refuses_mesh_flags(flags, monkeypatch):
-    """``--tp`` and ``--sp`` raise (ROADMAP item 12b); ``--n_devices 2``
-    spawns two ranks of the CLI, each evaluating its rows of every batch
-    (recorded here; ``tests/test_torch_data_parallel.py`` runs the Evaluator
-    on two ranks)."""
-    argv = ["--config", "unused.yaml", "--device", "cpu", *flags]
-    if flags[0] == "--n_devices":
-        import sod_tpu_torch.parallel.mesh as mesh_mod
+    """Every flag is accepted as ``sod_tpu/cli/evaluate.py:38-43, 84-97``
+    takes it: ``--n_devices 2`` spawns two ranks of the CLI, each evaluating
+    its rows of every batch, ``--tp 2`` or ``--sp 2`` two ranks (one data
+    rank on the CPU) and both four (recorded here;
+    ``tests/test_torch_data_parallel.py`` and
+    ``tests/test_torch_model_parallel.py`` run the Evaluator on them); more
+    ranks than the host has raise ``sod_tpu``'s ``ValueError``."""
+    from sod_tpu_torch.parallel.mesh import device_limit
 
-        spawned = []
-        monkeypatch.setattr(mesh_mod, "spawn_ranks",
-                            lambda fn, n, *args: spawned.append((fn, n, args)))
-        assert cli.main(argv) == {}
-        assert spawned == [(cli._rank_main, 2, (argv,))]
+    argv = ["--config", "unused.yaml", "--device", "cpu", *flags]
+    if flags == ["--sp", "9999"]:
+        with pytest.raises(ValueError, match=f"requested 1x9999 devices, have "
+                                             f"{device_limit('cpu')}"):
+            cli.main(argv)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        cli.main(argv)
+    import sod_tpu_torch.parallel.mesh as mesh_mod
+
+    spawned = []
+    monkeypatch.setattr(mesh_mod, "spawn_ranks",
+                        lambda fn, n, *args: spawned.append((fn, n, args)))
+    assert cli.main(argv) == {}
+    assert spawned == [(cli._rank_main, 4 if len(flags) == 4 else 2, (argv,))]
 
 
 def test_eval_modules_import_no_jax():

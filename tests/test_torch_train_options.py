@@ -401,7 +401,9 @@ def test_denormalize_equals_sod_tpus():
 
 def test_make_eval_step_matches_sod_tpus():
     """f32, uint8 input normalised on the device; ``fused`` in f32 runs
-    the unfused blocks on both sides."""
+    the unfused blocks on both sides.  ``apply_fn`` (the model-sharding
+    layouts' forward) takes the model's place: here the model's own
+    forward, so the same outputs."""
     jcfg, tcfg = _configs(use_flash=False)
     params, model = _shared(jcfg, tcfg)
     cfg = _cfg()
@@ -411,8 +413,12 @@ def test_make_eval_step_matches_sod_tpus():
     for k in ("mask_pred", "objectness"):
         assert got[k].dtype == torch.float32 and tuple(got[k].shape) == ref[k].shape
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        make_eval_step(cfg, model, apply_fn=lambda *a: None)
+    calls = []
+    hooked = make_eval_step(cfg, model, apply_fn=lambda m, x: calls.append(x.dtype) or m(x))(
+        torch.from_numpy(u8))
+    assert calls == [torch.float32]
+    for k in ("mask_pred", "objectness"):
+        assert torch.equal(hooked[k], got[k])
 
 
 @pytest.mark.parametrize("bc", [True, False])

@@ -106,29 +106,47 @@ def test_cli_trains_and_resumes(workspace, capsys, two_threads):
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"],
                                    ["--pp", "2"], ["--sp", "2"],
-                                   ["--fsdp", "zero1"], ["--async-checkpoint"]])
+                                   ["--fsdp", "zero1"], ["--async-checkpoint"],
+                                   ["--n_devices", "2", "--tp", "2"],
+                                   ["--tp", "9999"], ["--pp", "2", "--sp", "2"]])
 def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
-    """The model-sharding flags raise (ROADMAP item 12b).  The others are
-    accepted (``sod_tpu/cli/train.py:27-54, 96-140``): ``--n_devices 2``
-    spawns two ranks of the CLI (recorded here; a spawned CLI runs in
-    ``tests/test_torch_data_parallel.py``); ``--fsdp`` sets ``fsdp`` and
+    """Every flag is accepted as ``sod_tpu/cli/train.py:27-54, 96-140``
+    takes it: ``--n_devices 2`` spawns two ranks of the CLI and ``--tp 2``,
+    ``--pp 2`` or ``--sp 2`` two (one data rank on the CPU), ``--n_devices 2
+    --tp 2`` four (recorded here; spawned ranks run in
+    ``tests/test_torch_data_parallel.py`` and
+    ``tests/test_torch_model_parallel.py``); more ranks than the host has
+    raise ``sod_tpu``'s ``ValueError`` before any rendezvous, and ``--sp``
+    with ``--pp`` its exit; ``--fsdp`` sets ``fsdp`` and
     ``--async-checkpoint`` sets ``async_checkpoint`` for the Trainer, and
     the CLI waits for the last write before it returns
     (``sod_tpu/cli/train.py:79-80, 148``)."""
+    import torch.distributed as dist
+
+    from sod_tpu_torch.parallel.mesh import device_limit
+
     _, fp = workspace
     argv = ["--config", fp, "--device", "cpu", *flags]
-    if flags[0] in ("--tp", "--pp", "--sp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    if flags == ["--tp", "9999"]:
+        with pytest.raises(ValueError, match=f"requested 1x9999 devices, have "
+                                             f"{device_limit('cpu')}"):
+            cli.main(argv)
+        assert not dist.is_initialized()
+        return
+    if flags == ["--pp", "2", "--sp", "2"]:
+        with pytest.raises(SystemExit, match="--sp is mutually exclusive with --pp"):
             cli.main(argv)
         return
-    if flags[0] == "--n_devices":
+    if flags[0] in ("--n_devices", "--tp", "--pp", "--sp"):
         import sod_tpu_torch.parallel.mesh as mesh_mod
 
         spawned = []
         monkeypatch.setattr(mesh_mod, "spawn_ranks",
                             lambda fn, n, *args: spawned.append((fn, n, args)))
         cli.main(argv)
-        assert spawned == [(cli._rank_main, 2, (argv,))]
+        n = 4 if len(flags) == 4 else 2
+        passed = argv if flags[0] == "--n_devices" else [*argv, "--n_devices", "1"]
+        assert spawned == [(cli._rank_main, n, (passed,))]
         return
     calls = []
 
