@@ -238,7 +238,18 @@ Then, after phase 21:
    against the step with no mesh (weights within ``LAYOUT_MAX_ABS``,
    moments and metrics within ``LAYOUT_MAX_REL``, no port kernel launched),
    their step ms in turns; the SP Evaluator on the 400 px canvas against
-   the run with no mesh.
+   the run with no mesh; four ranks' arithmetic at model 4, which cuts
+   ViT-S's 6 heads (q, k and v gathered, four proj and fc2 partials),
+   against the whole block;
+24. ``sod_tpu_torch/dryrun.py`` at one NCCL rank: the dryrun's phases 1, 2,
+   2b, 3 and 4 (two data-mesh steps and the IoU, averaged and exact
+   accumulation, resume from the ``.pt``, the Evaluator over the mesh), each
+   held to the one-device run at the reference's tolerances; the others
+   need two or more ranks (phase 8 a data axis above 1); then ``entry()``,
+   the flagship forward at full width on a zero bf16 image: its 12 K2
+   forward launches, each against K2's plain version on the same inputs
+   within phase 6's bounds, the outputs against the forward through the
+   plain version (printed), and both forwards' ms.
 
 The line before the last is the kernel report (JSON): each kernel's launches
 on its path, max_abs_err, ms, plain_ms, bound_ms (the larger of its
@@ -4590,10 +4601,14 @@ def _layout_gaps(ref, got):
 
 
 def _two_rank_arithmetic(sd, cfg):
-    """The two-rank arithmetic one process can hold, on CUDA tensors: TP's two
-    head groups' row-parallel partials summed against the whole block, SP's
-    two query slices (785 tokens padded to 786, the pad masked) each
-    absorbing both key/value slices in turn against dense attention."""
+    """The ranks' arithmetic one process can hold, on CUDA tensors: TP's two
+    head groups' row-parallel partials summed against the whole block; at
+    model 4, which cuts ViT-S's 6 heads, the four ranks' q, k and v rows
+    gathered in rank order, attention over every head, each rank's columns of
+    its output through its proj shard, the four partials summed against the
+    whole block; SP's two query slices (785 tokens padded to 786, the pad
+    masked) each absorbing both key/value slices in turn against dense
+    attention."""
     import torch
 
     from sod_tpu_torch.models.maskformer import MaskFormer, config_from
@@ -4629,6 +4644,24 @@ def _two_rank_arithmetic(sd, cfg):
             u = gelu(linear(h2, w["0.mlp.fc1.weight"], w["0.mlp.fc1.bias"]))
             parts.append(_row_parallel(u, w["0.mlp.fc2.weight"], None, None))
         tp = float(((x1 + ((parts[0] + parts[1]) + blk.mlp.fc2.bias)) - whole).abs().max())
+        # model 4: 96 rows of each third a rank, 1.5 heads
+        specs = tp_specs(wrap, 4)
+        shards = [{n: model_shard(p, specs[n]["model"], 4, r, bool(_PACKED.search(n)))
+                   if specs[n] else p for n, p in wrap.named_parameters()} for r in range(4)]
+        ys = [linear(h, w["0.attn.qkv.weight"], w["0.attn.qkv.bias"])
+              .reshape(TRAIN_B, TRAIN_N, 3, -1) for w in shards]
+        rows = ys[0].shape[-1]
+        y = torch.cat(ys, -1).reshape(TRAIN_B, TRAIN_N, 3, vcfg.n_heads, hd)
+        q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+        out = _merge_heads(sdpa(q, k, v, hd ** -0.5))
+        parts = [_row_parallel(out[..., r * rows:(r + 1) * rows], w["0.attn.proj.weight"],
+                               None, None) for r, w in enumerate(shards)]
+        x1 = x + (((parts[0] + parts[1]) + parts[2]) + parts[3] + blk.attn.proj.bias)
+        h2 = blk.norm2(x1)
+        parts = [_row_parallel(gelu(linear(h2, w["0.mlp.fc1.weight"], w["0.mlp.fc1.bias"])),
+                               w["0.mlp.fc2.weight"], None, None) for w in shards]
+        tp4 = float(((x1 + (((parts[0] + parts[1]) + parts[2]) + parts[3]
+                            + blk.mlp.fc2.bias)) - whole).abs().max())
         # the ring's update over two slices of 393 (the last key a pad)
         q, k, v = (torch.randn(TRAIN_B, vcfg.n_heads, TRAIN_N + 1, hd, device="cuda",
                                generator=g) for _ in range(3))
@@ -4646,7 +4679,7 @@ def _two_rank_arithmetic(sd, cfg):
                                    hd ** -0.5)
             sp = max(sp, float((acc / l[..., None] - dense[:, :, j * c:(j + 1) * c])
                                .abs().max()))
-    return tp, sp
+    return tp, tp4, rows, sp
 
 
 def model_layouts_check():
@@ -4684,13 +4717,15 @@ def model_layouts_check():
     print(f"  split {sum('.attn.qkv.' in k for k in sd)} packed qkv leaves into "
           f"{sum('.attn.q.' in k or '.attn.k.' in k or '.attn.v.' in k for k in split)}, "
           "merged back bit for bit", flush=True)
-    tp_gap, sp_gap = _two_rank_arithmetic(sd, base)
+    tp_gap, tp4_gap, rows4, sp_gap = _two_rank_arithmetic(sd, base)
     print(f"  two ranks in one process, B={TRAIN_B} x {TRAIN_N} tokens, f32: TP two head "
           f"groups' row-parallel partials summed vs the whole block max_abs {tp_gap:.3g}; "
+          f"TP at model 4 ({rows4} rows of q, k, v a rank: 6 heads cut), gathered q/k/v "
+          f"and four proj / fc2 partials summed vs the whole block max_abs {tp4_gap:.3g}; "
           f"SP two query slices absorbing both key/value slices vs dense attention "
           f"max_abs {sp_gap:.3g} (bound {LAYOUT_SPLIT_MAX_ABS:g}) [{CARD}]", flush=True)
-    if max(tp_gap, sp_gap) > LAYOUT_SPLIT_MAX_ABS:
-        raise AssertionError("the two-rank arithmetic differs from the whole")
+    if max(tp_gap, tp4_gap, sp_gap) > LAYOUT_SPLIT_MAX_ABS:
+        raise AssertionError("the ranks' arithmetic differs from the whole")
 
     batch = _to_cuda(synthetic_batch(np.random.default_rng(23), base.batch_size,
                                      base.train_image_size, base.max_gt_masks))
@@ -4772,6 +4807,97 @@ def model_layouts_check():
     return report
 
 
+# phase 24: the dryrun at one NCCL rank, its phases that one rank runs (the
+# others need two or more ranks; phase 8 shards nothing on a data axis of 1,
+# and asserts that it did, as the reference's does), then entry()'s flagship
+# forward at full width: its K2 forward launches, each held to K2's plain
+# version on the same inputs within phase 6's bounds
+DRYRUN_PHASES = ("1", "2", "2b", "3", "4")
+ENTRY_K2_LAUNCHES = 12
+ENTRY_ROUNDS = 10
+
+
+def dryrun_check() -> dict:
+    """Phase 24: ``sod_tpu_torch/dryrun.py`` at one NCCL rank, then
+    ``entry()`` on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from sod_tpu_torch import dryrun
+    from sod_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    try:
+        out = dryrun.run_phases(1, "cuda", phases=DRYRUN_PHASES)
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if backend != "nccl" or not set(DRYRUN_PHASES) <= set(out):
+        raise AssertionError(f"the dryrun ran {sorted(out)} over {backend}")
+    print(f"  dryrun at 1 NCCL rank: phases {', '.join(DRYRUN_PHASES)} match the one-device "
+          f"run (loss {out['reference']['loss']:.6g}, IoU {out['reference']['iou']:.6g}); "
+          f"{time.perf_counter() - t0:.1f} s [{CARD}]", flush=True)
+
+    fn, (model, x) = dryrun.entry("cuda")
+    real = fa.flash_forward_cuda
+    calls = []
+
+    def recording(q, k, v, scale, key_mask=None):
+        o, m, l = real(q, k, v, scale, key_mask)
+        calls.append((q, k, v, scale, key_mask, o))
+        return o, m, l
+
+    def plain(q, k, v, scale, key_mask=None):
+        return fa.flash_forward_reference(q, k, v, scale, key_mask), None, None
+
+    fn(model, x)                                        # warm-up
+    torch.cuda.synchronize()
+    fa.flash_forward_cuda = recording
+    try:
+        reset_launch_counts()
+        got = fn(model, x)
+        torch.cuda.synchronize()
+        launches = launch_counts()["K2 fwd"]
+    finally:
+        fa.flash_forward_cuda = real
+    worst = (0.0, 0.0, 1.0)
+    for q, k, v, scale, key_mask, o in calls:
+        max_abs, rel_l2, corr = errors(o, fa.flash_forward_reference(q, k, v, scale, key_mask))
+        worst = (max(worst[0], max_abs), max(worst[1], rel_l2), min(worst[2], corr))
+    fa.flash_forward_cuda = plain
+    try:
+        want = fn(model, x)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: fn(model, x), ENTRY_ROUNDS)
+    finally:
+        fa.flash_forward_cuda = real
+    kernel_ms = cuda_ms(lambda: fn(model, x), ENTRY_ROUNDS)
+    gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+    shapes = [tuple(t.shape) for t in got]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+    print(f"  entry(): MaskFormer(config_from(Config())) at 224 px on a zero bf16 image, "
+          f"outputs {shapes}, finite {finite}; K2 forward launches {launches} (want "
+          f"{ENTRY_K2_LAUNCHES}), each vs its plain version: max_abs {worst[0]:.3g} (<= "
+          f"{K2_MAX_ABS}), rel_l2 {worst[1]:.3g} (<= {K2_MAX_REL_L2}), corr {worst[2]:.8f} "
+          f"(> {K2_MIN_CORR}); vs the forward through the plain version: mask_pred max_abs "
+          f"{gaps[0]:.3g}, objectness {gaps[1]:.3g} (printed); forward ms {kernel_ms:.2f} "
+          f"kernel vs {plain_ms:.2f} plain [{CARD}]", flush=True)
+    ok = (launches == ENTRY_K2_LAUNCHES and len(calls) == ENTRY_K2_LAUNCHES and finite
+          and worst[0] <= K2_MAX_ABS and worst[1] <= K2_MAX_REL_L2 and worst[2] > K2_MIN_CORR
+          and shapes == [(1, 6, 20, 56, 56), (1, 6, 20, 1)])
+    if not ok:
+        raise AssertionError("entry()'s forward did not launch K2 12 times within phase 6's "
+                             "bounds of its plain version")
+    del model, got, want, calls
+    _release()
+    phase(24, f"dryrun phases {', '.join(DRYRUN_PHASES)} at 1 NCCL rank match one device; "
+              f"entry() {shapes}, {launches} K2 forward launches within phase 6's bounds, "
+              f"{kernel_ms:.2f} ms vs {plain_ms:.2f} plain; "
+              f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    return {"entry K2 fwd": launches, "entry ms": kernel_ms, "entry plain ms": plain_ms}
+
+
 def main():
     card_check()
     import torch
@@ -4804,6 +4930,7 @@ def main():
     training_options_check()
     data_mesh_check()
     model_layouts_check()
+    dr = dryrun_check()
     fused_run, default_run = ev_counts["use_fused_eval"], ev_counts["default"]
 
     # bounds of K1 and K2 at the shapes they were timed at (B=8, 785 tokens)
@@ -4823,7 +4950,8 @@ def main():
                     graph_ms=k1_graph_ms),
               entry(K8, k8_launches, k8_worst, *k8_times[8][:2], k8_bound),
               entry(K2_FWD, k2_launches[0], k2_worst["fwd"], *k2_times["fwd"],
-                    k2_bounds["fwd"], k2_times["fwd_lib"]),
+                    k2_bounds["fwd"], k2_times["fwd_lib"],
+                    entry_launches=dr["entry K2 fwd"]),
               entry(K2_BWD, k2_launches[1], k2_worst["bwd"], *k2_times["bwd"],
                     k2_bounds["bwd"], k2_times["bwd_lib"]),
               # the same kernel as default evaluation calls it (B=16, 2501 tokens, masked)

@@ -92,7 +92,7 @@ def train_layout(cfg, mcfg, model, mesh) -> Tuple[Optional[Callable], Optional[S
     if kind == "tp":
         from sod_tpu_torch.parallel.tp import assert_tp_compatible, make_tp_apply, shard_params
 
-        assert_tp_compatible(cfg, mesh, mcfg)
+        assert_tp_compatible(cfg, mesh)
         return make_tp_apply(mesh), shard_params(model, mesh, level)
     if mcfg.arch != "vit_small":
         raise ValueError(f"the {kind} layout pipelines or token-shards the ViT encoder; "
@@ -138,7 +138,7 @@ def eval_layout(cfg, mcfg, model, mesh):
         from sod_tpu_torch.parallel.tp import (assert_tp_compatible, make_tp_apply,
                                                param_shardings)
 
-        assert_tp_compatible(cfg, mesh, mcfg)
+        assert_tp_compatible(cfg, mesh)
         return mp_local_copy(model, mesh, param_shardings(model, mesh)), make_tp_apply(mesh)
     if "seq" in names:
         from sod_tpu_torch.parallel.sp import assert_sp_compatible, make_sp_apply

@@ -8,9 +8,9 @@ rank keeps its shard of them (``shard_params``, a ``StateLayout``); the
 forward then runs Megatron's collectives by hand (``parallel/comm.py``):
 
 * column-parallel, the output rows shard: ``attn.qkv`` and the decoder's
-  ``in_proj`` (packed ``[q|k|v]``: the same rows of each third, so a rank
-  holds whole heads), ``mlp.fc1`` and ``linear1``, biases with them.  "f"
-  (``copy_to_group``) stands before them;
+  ``in_proj`` (packed ``[q|k|v]``: the same rows of each third),
+  ``mlp.fc1`` and ``linear1``, biases with them.  "f" (``copy_to_group``)
+  stands before them;
 * row-parallel, the input columns shard: ``attn.proj``, ``out_proj``,
   ``mlp.fc2``, ``linear2``.  "g" (``reduce_from_group``) sums their partial
   products, then the whole bias is added once;
@@ -18,15 +18,33 @@ forward then runs Megatron's collectives by hand (``parallel/comm.py``):
   patch projection, the heads, a ResNet encoder.
 
 A leaf whose axis the ``model`` size does not divide stays whole, as in
-``sod_tpu`` (a packed leaf when its thirds do not divide).  Local heads need
-``n_heads`` and the widths divisible (``assert_tp_compatible`` with the
-model's config): ``sod_tpu``'s GSPMD can cut a head, Megatron cannot.
+``sod_tpu`` (a packed leaf when its thirds do not divide), and so does its
+partner: ``qkv``/``proj``, ``fc1``/``fc2``, ``in_proj``/``out_proj`` and
+``linear1``/``linear2`` each share one width.  ``sod_tpu``'s GSPMD runs
+whatever the specs give; here the encoder blocks and the decoder layers
+(``make_tp_apply``) pick a path per pair from what this rank holds:
 
-The encoder blocks and the decoder layers run tensor-parallel
-(``make_tp_apply``); everything after a "g" is computed alike on every rank
-of the group, so the loss is, and a replicated leaf's gradient is the same on
-every rank.  Plain PyTorch path only (``assert_tp_compatible``): the kernels
-are single-shard programs.
+1. the model size divides the layer's heads: each rank runs its own heads
+   between "f" and "g";
+2. the q/k/v shards cut a head (ViT-S's 6 heads at model 4, 1.5 a rank):
+   the column-parallel product on the local rows; q, k and v gathered over
+   the group on the feature axis in rank order (``comm.gather_along``: a
+   rank's rows of a third are its contiguous shard of it, so each gathered
+   third is whole); attention over every head on every rank; then "f" on its
+   output, this rank's columns of it, the row-parallel product and "g".
+   "f" stands before the narrow because ``gather_along``'s backward hands
+   each rank its slice of a gradient that must be alike on every rank:
+   without it a rank's gradient of the attention output holds only its own
+   columns, and dq, dk, dv would be that rank's part of the sum;
+3. the pair stays whole: every rank runs it whole, with no "f" and no "g".
+   Its leaves are replicated ones, whose gradient ``StateLayout`` counts
+   once.
+
+Everything after a "g" is computed alike on every rank of the group, so the
+loss is, and a replicated leaf's gradient is the same on every rank.  p3
+and sptp refuse heads that the model axis cuts, as ``sod_tpu`` does, so
+under them ``block_apply`` takes path 1.  Plain PyTorch path only
+(``assert_tp_compatible``): the kernels are single-shard programs.
 """
 from __future__ import annotations
 
@@ -35,10 +53,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from sod_tpu_torch.models.vit import prepare_tokens
+import torch.distributed as dist
+
+from sod_tpu_torch.models.vit import MLP_RATIO, prepare_tokens
 from sod_tpu_torch.ops.attention import _merge_heads, _split_heads, sdpa
 from sod_tpu_torch.ops.layers import gelu, linear
-from sod_tpu_torch.parallel.comm import copy_to_group, reduce_from_group
+from sod_tpu_torch.parallel.comm import copy_to_group, gather_along, reduce_from_group
 from sod_tpu_torch.parallel.fsdp import _PACKED, StateLayout, fsdp_specs
 from sod_tpu_torch.parallel.mesh import assert_xla_path, axis_size, make_mesh_nd
 
@@ -105,10 +125,9 @@ def shard_opt_state(layout: StateLayout, opt_state: Dict) -> Dict:
     return layout.local_opt_state(opt_state)
 
 
-def assert_tp_compatible(cfg, mesh, mcfg=None) -> None:
+def assert_tp_compatible(cfg, mesh) -> None:
     """Fail loudly when a >1 model axis meets a kernel path (``sod_tpu``'s
-    check and message), or, given the model's config ``mcfg``, when its
-    heads or widths do not divide the model axis (local heads)."""
+    check and message).  Any heads and widths run (the module's paths)."""
     n_model = axis_size(mesh, "model")
     if n_model <= 1:
         return
@@ -117,8 +136,6 @@ def assert_tp_compatible(cfg, mesh, mcfg=None) -> None:
         f"tensor parallelism (model axis {n_model}) requires the XLA path",
         "Pallas kernels are single-shard programs (wrapping them in "
         "shard_map is future work, see docs/PERFORMANCE.md)")
-    if mcfg is not None:
-        check_divisible(mcfg.n_heads, mcfg.embed_dim, 4 * mcfg.embed_dim, n_model)
 
 
 def check_divisible(n_heads: int, embed_dim: int, hidden: int, n_model: int) -> None:
@@ -141,9 +158,11 @@ def require_plain_blocks(cfg, fn: str, module: str) -> None:
 
 def require_shards(vit, mesh, message: str) -> None:
     """Raise ``message`` unless ``vit``'s blocks hold this rank's model
-    shards (whole blocks at a model axis of 1; a block off this rank's pipe
-    stage holds nothing)."""
-    rows = 3 * vit.cfg.embed_dim // axis_size(mesh, "model")
+    shards (whole blocks at a model axis of 1, or of one that does not
+    divide the width, as ``tp_specs`` leaves them; a block off this rank's
+    pipe stage holds nothing)."""
+    d, n_model = vit.cfg.embed_dim, axis_size(mesh, "model")
+    rows = 3 * (d // n_model if d % n_model == 0 else d)
     if any(blk.attn.qkv.weight.shape[0] not in (0, rows) for blk in vit.blocks):
         raise ValueError(message)
 
@@ -166,24 +185,45 @@ def _column(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else copy_to_group(x, group)
 
 
+def _pair_group(local: int, whole: int, group):
+    """The group a column/row pair runs over: None when this rank holds the
+    pair whole (``local`` rows of its ``whole``-row column leaf; path 3)."""
+    return None if local == whole else group
+
+
+def _cut_heads_out(out: torch.Tensor, rows: int, group) -> torch.Tensor:
+    """Path 2's attention output [B, N, D], alike on every rank: "f", then
+    this rank's ``rows`` columns of it (its row-parallel input)."""
+    return copy_to_group(out, group).narrow(-1, dist.get_rank(group) * rows, rows)
+
+
 def block_apply(blk, x: torch.Tensor, cfg, key_mask: Optional[torch.Tensor] = None,
                 group=None, attend: Optional[Callable] = None) -> torch.Tensor:
-    """One encoder block (``Block.forward``'s math) over this rank's heads:
-    "f", the local q/k/v and fc1 rows, the row-parallel proj and fc2 with
-    "g" over ``group`` (no collective when None).
+    """One encoder block (``Block.forward``'s math) tensor-parallel over
+    ``group`` (no collective when None), on the path this rank's shards
+    call for (the module's 1-3).
 
     :param attend: ``(q, k, v, scale, key_mask) -> out`` over [B, h, N, hd]
         (default ``sdpa``; the ring of ``parallel/sp.py`` under a seq axis)."""
-    hd = cfg.embed_dim // cfg.n_heads
-    heads = blk.attn.qkv.weight.shape[0] // (3 * hd)
+    attend = attend or sdpa
+    d = cfg.embed_dim
+    hd = d // cfg.n_heads
     b, n, _ = x.shape
-    h = _column(blk.norm1(x), group)
-    y = linear(h, blk.attn.qkv.weight, blk.attn.qkv.bias).reshape(b, n, 3, heads, hd)
-    q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
-    out = (attend or sdpa)(q, k, v, hd ** -0.5, key_mask)
-    x = x + _row_parallel(_merge_heads(out), blk.attn.proj.weight, blk.attn.proj.bias, group)
-    u = gelu(linear(_column(blk.norm2(x), group), blk.mlp.fc1.weight, blk.mlp.fc1.bias))
-    return x + _row_parallel(u, blk.mlp.fc2.weight, blk.mlp.fc2.bias, group)
+    rows = blk.attn.qkv.weight.shape[0] // 3          # this rank's rows of q, of k, of v
+    g = _pair_group(rows, d, group)
+    y = linear(_column(blk.norm1(x), g), blk.attn.qkv.weight, blk.attn.qkv.bias)
+    if rows % hd == 0:
+        y = y.reshape(b, n, 3, rows // hd, hd)
+        q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+        out = _merge_heads(attend(q, k, v, hd ** -0.5, key_mask))
+    else:
+        y = gather_along(y.reshape(b, n, 3, rows), -1, g).reshape(b, n, 3, cfg.n_heads, hd)
+        q, k, v = (y[:, :, i].transpose(1, 2) for i in range(3))
+        out = _cut_heads_out(_merge_heads(attend(q, k, v, hd ** -0.5, key_mask)), rows, g)
+    x = x + _row_parallel(out, blk.attn.proj.weight, blk.attn.proj.bias, g)
+    g = _pair_group(blk.mlp.fc1.weight.shape[0], MLP_RATIO * d, group)
+    u = gelu(linear(_column(blk.norm2(x), g), blk.mlp.fc1.weight, blk.mlp.fc1.bias))
+    return x + _row_parallel(u, blk.mlp.fc2.weight, blk.mlp.fc2.bias, g)
 
 
 def tp_vit_apply(vit, x: torch.Tensor, mesh, all_layers: bool = False,
@@ -206,17 +246,23 @@ def tp_vit_apply(vit, x: torch.Tensor, mesh, all_layers: bool = False,
 
 
 def _mha(attn, query, key, value, key_mask, group) -> torch.Tensor:
-    """``multi_head_attention`` over this rank's heads of the packed local
-    ``in_proj`` rows, the row-parallel ``out_proj`` summed over ``group``."""
+    """``multi_head_attention`` from this rank's packed ``in_proj`` rows,
+    the row-parallel ``out_proj`` summed over ``group``, on the path those
+    rows call for (the module's 1-3)."""
     d = attn.in_proj_weight.shape[1]
-    local = attn.in_proj_weight.shape[0] // 3
-    heads = local // (d // attn.n_heads)
+    hd = d // attn.n_heads
+    rows = attn.in_proj_weight.shape[0] // 3
+    g = _pair_group(rows, d, group)
     w, bias = attn.in_proj_weight, attn.in_proj_bias
-    q, k, v = (_split_heads(linear(_column(t, group), w[i * local:(i + 1) * local],
-                                   bias[i * local:(i + 1) * local]), heads)
+    q, k, v = (linear(_column(t, g), w[i * rows:(i + 1) * rows], bias[i * rows:(i + 1) * rows])
                for i, t in enumerate((query, key, value)))
-    out = sdpa(q, k, v, (d // attn.n_heads) ** -0.5, key_mask)
-    return _row_parallel(_merge_heads(out), attn.out_proj.weight, attn.out_proj.bias, group)
+    if rows % hd == 0:
+        out = _merge_heads(sdpa(*(_split_heads(t, rows // hd) for t in (q, k, v)),
+                                hd ** -0.5, key_mask))
+    else:
+        q, k, v = (_split_heads(gather_along(t, -1, g), attn.n_heads) for t in (q, k, v))
+        out = _cut_heads_out(_merge_heads(sdpa(q, k, v, hd ** -0.5, key_mask)), rows, g)
+    return _row_parallel(out, attn.out_proj.weight, attn.out_proj.bias, g)
 
 
 def decoder_layer_apply(layer, tgt, memory, query_pos, memory_mask=None, group=None):
@@ -225,8 +271,10 @@ def decoder_layer_apply(layer, tgt, memory, query_pos, memory_mask=None, group=N
     tgt = layer.norm1(tgt + _mha(layer.self_attn, qk, qk, tgt, None, group))
     tgt = layer.norm2(tgt + _mha(layer.multihead_attn, tgt + query_pos, memory, memory,
                                  memory_mask, group))
-    h = torch.relu(linear(_column(tgt, group), layer.linear1.weight, layer.linear1.bias))
-    return layer.norm3(tgt + _row_parallel(h, layer.linear2.weight, layer.linear2.bias, group))
+    w1 = layer.linear1.weight
+    g = _pair_group(w1.shape[0], 4 * w1.shape[1], group)     # DecoderLayer's 4 * d
+    h = torch.relu(linear(_column(tgt, g), w1, layer.linear1.bias))
+    return layer.norm3(tgt + _row_parallel(h, layer.linear2.weight, layer.linear2.bias, g))
 
 
 def maskformer_apply_fn(encoder_apply: Callable, layer_apply: Optional[Callable] = None

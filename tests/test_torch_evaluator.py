@@ -509,12 +509,14 @@ def test_cli_loads_a_checkpoint_of_the_trainer(tmp_path, rng, capsys, two_thread
 
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"],
-                                   ["--tp", "2", "--sp", "2"], ["--sp", "9999"]])
+                                   ["--tp", "2", "--sp", "2"], ["--tp", "4"],
+                                   ["--sp", "9999"]])
 def test_cli_refuses_mesh_flags(flags, monkeypatch):
     """Every flag is accepted as ``sod_tpu/cli/evaluate.py:38-43, 84-97``
     takes it: ``--n_devices 2`` spawns two ranks of the CLI, each evaluating
     its rows of every batch, ``--tp 2`` or ``--sp 2`` two ranks (one data
-    rank on the CPU) and both four (recorded here;
+    rank on the CPU), both four, and ``--tp 4`` four, a model axis that cuts
+    ViT-S's 6 heads (recorded here;
     ``tests/test_torch_data_parallel.py`` and
     ``tests/test_torch_model_parallel.py`` run the Evaluator on them); more
     ranks than the host has raise ``sod_tpu``'s ``ValueError``."""
@@ -532,7 +534,7 @@ def test_cli_refuses_mesh_flags(flags, monkeypatch):
     monkeypatch.setattr(mesh_mod, "spawn_ranks",
                         lambda fn, n, *args: spawned.append((fn, n, args)))
     assert cli.main(argv) == {}
-    assert spawned == [(cli._rank_main, 4 if len(flags) == 4 else 2, (argv,))]
+    assert spawned == [(cli._rank_main, int(np.prod([int(v) for v in flags[1::2]])), (argv,))]
 
 
 def test_eval_modules_import_no_jax():

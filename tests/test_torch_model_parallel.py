@@ -3,8 +3,10 @@ gloo, against ``sod_tpu`` on its own meshes and on one device.
 
 One 2-rank group runs TP (1x2), PP (1x2, M = 2 and 4) and SP (1x2, 17
 tokens round a ring of 2, so one pad); one 4-rank group runs data x model
-(2x2), p3 (1x2x2), sptp (1x2x2) and a Trainer epoch under p3 whose ``.pt``
-resumes under sptp (and, in the parent, under no mesh).  ``zero1`` needs a
+(2x2), p3 (1x2x2), sptp (1x2x2), TP at 1x4 (the 2 heads of d 32 cut in
+half: q, k and v gathered; and a d 30 tree, whose attention stays whole
+while its MLP shards) and a Trainer epoch under p3 whose ``.pt`` resumes
+under sptp (and, in the parent, under no mesh).  ``zero1`` needs a
 data axis above 1, so with four ranks it runs on the 2x2 mesh, on p3's mesh
 with data 2 (2x2x1) and on sptp's (2x1x2).  Both groups run while the parent
 computes ``sod_tpu``'s references on its virtual CPU devices
@@ -83,11 +85,11 @@ def _whole_grads(layout):
             if n.startswith("encoder.")}
 
 
-def _encoder_case(inp, mesh, fn, mask=None, **kw):
+def _encoder_case(inp, mesh, fn, mask=None, sd="sd", mcfg=None, **kw):
     """The encoder's forward (every layer) and the gradients of the mean
-    square of it, from the tiny tree's weights."""
-    sd = {k: torch.from_numpy(v) for k, v in inp["sd"].items()}
-    model, _, layout = _model(sd, mesh, _cfg())
+    square of it, from the tiny tree's weights (``inp[sd]``, of ``mcfg``)."""
+    sd = {k: torch.from_numpy(v) for k, v in inp[sd].items()}
+    model, _, layout = _model(sd, mesh, _cfg(), mcfg)
     x = torch.from_numpy(inp["x"])
     m = None if mask is None else torch.from_numpy(mask)
     out = fn(model.encoder, x, mesh, all_layers=True, token_mask=m, **kw)
@@ -175,6 +177,14 @@ def _group4(inp, res):
     res["sptp step"] = _step_case(inp, mesh)
     res["sptp eval"] = _eval_case(inp, mesh)
     res["sptp zero1 step"] = _step_case(inp, make_mesh_sptp(2, 1, 2, "cpu"), "zero1")
+    # a model axis of 4 cuts the 2 heads of d 32 (q, k, v gathered); at d 30
+    # attention stays whole and the MLP shards
+    mesh = make_mesh_2d(1, 4, "cpu")
+    res["tp4 enc"] = _encoder_case(inp, mesh, tp_vit_apply)
+    res["tp4 d30 enc"] = _encoder_case(inp, mesh, tp_vit_apply, sd="sd30",
+                                       mcfg=_mcfg30())
+    res["tp4 step"] = _step_case(inp, mesh)
+    res["tp4 eval"] = _eval_case(inp, mesh)
 
     # a Trainer epoch under p3 (the mesh from the config's axes), its .pt
     # resumed under sptp for a second epoch
@@ -193,6 +203,14 @@ def _group4(inp, res):
     res["sptp trainer resumed"] = {"next": nxt, "params": t._state()[0]}
 
 
+def _mcfg30():
+    return MaskFormerConfig(n_queries=4, n_decoder_layers=2, vit=ViTConfig(**_vit30()))
+
+
+def _vit30():
+    return dict(_vit(), embed_dim=30)
+
+
 def _group_cases(rank, tmp):
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
@@ -204,10 +222,11 @@ def _group_cases(rank, tmp):
 
 # ------------------------------------------------------------ the parent side
 
-def _jax_refs(params, eval_params, x, mask, eval_dir):
+def _jax_refs(params, eval_params, x, mask, eval_dir, params30):
     """sod_tpu's encoder forwards on one device and on each layout's own
     mesh, its gradients on one device (its own tests hold its meshes'
-    gradients to those), and its one-device Evaluator."""
+    gradients to those), and its one-device Evaluator; the d 30 tree's
+    forward and gradients on one device and its forward on (1, 4)."""
     import jax
     import jax.numpy as jnp
 
@@ -245,6 +264,14 @@ def _jax_refs(params, eval_params, x, mask, eval_dir):
     tp_enc = shard_params(params, m2)["encoder"]
     with jax.set_mesh(m2):
         ref["tp"] = case(lambda p: vit_apply(p, xj, cfg, all_layers=True), tp_enc)
+    cfg30 = JViT(**_vit30())
+    ref["single d30"] = case(lambda p: vit_apply(p, xj, cfg30, all_layers=True),
+                             params30["encoder"], True)
+    m4 = jm2(1, 4)
+    for name, c, p in (("tp4", cfg, params), ("tp4 d30", cfg30, params30)):
+        with jax.set_mesh(m4):
+            ref[name] = case(lambda p_, c=c: vit_apply(p_, xj, c, all_layers=True),
+                             shard_params(p, m4)["encoder"])
     for m in (2, 4):
         mesh = jmpp(1, 2)
         ref[f"pp M{m}"] = case(lambda p: jpp(p, xj, cfg, mesh, n_micro=m, token_mask=mj), enc)
@@ -291,6 +318,7 @@ def runs(tmp_path_factory):
     eval_params = _jax_tree(JMC(n_queries=4, n_decoder_layers=2,
                                 vit=JViT(**_vit(pos_grid=8, depth=2))), 1)
     sd = {k: np.array(v) for k, v in state_dict_from_jax(params).items()}
+    params30 = _jax_tree(JMC(n_queries=4, n_decoder_layers=2, vit=JViT(**_vit30())), 5)
     batches = _batches(1)
     x = np.random.RandomState(3).rand(8, 32, 32, 3).astype(np.float32)
     mask = _token_mask()
@@ -298,7 +326,8 @@ def runs(tmp_path_factory):
     make_duts(tmp / "tr", rng, n_test=0, n_train=8, train_hw=(64, 64))
     inputs = {"sd": sd, "batches": batches, "x": x, "mask": mask,
               "eval_sd": state_dict_from_jax(eval_params), "eval_dir": str(tmp / "ev"),
-              "train_dir": tmp / "tr"}
+              "train_dir": tmp / "tr",
+              "sd30": {k: np.array(v) for k, v in state_dict_from_jax(params30).items()}}
     for n in (2, 4):
         os.makedirs(tmp / f"g{n}")
         torch.save(inputs, tmp / f"g{n}" / "inputs.pt")
@@ -315,7 +344,7 @@ def runs(tmp_path_factory):
     torch.set_num_threads(2)
     pool = ThreadPoolExecutor(2)
     step_ref = pool.submit(_jax_run, params, batches)
-    jax_ref = pool.submit(_jax_refs, params, eval_params, x, mask, str(tmp / "ev"))
+    jax_ref = pool.submit(_jax_refs, params, eval_params, x, mask, str(tmp / "ev"), params30)
     # the port's one-device epochs: epoch 1, and epoch 2 resumed from its .pt
     t_sd = {k: torch.from_numpy(v) for k, v in sd.items()}
     single = Trainer(_trainer_cfg(tmp / "tr", suffix="single"), device="cpu",
@@ -342,7 +371,9 @@ def runs(tmp_path_factory):
 
 # ------------------------------------------------------------ forwards, gradients
 
-ENCODERS = [("tp enc", "tp", "single", FWD), ("pp M2 enc", "pp M2", "single mask", FWD),
+ENCODERS = [("tp enc", "tp", "single", FWD), ("tp4 enc", "tp4", "single", FWD),
+            ("tp4 d30 enc", "tp4 d30", "single d30", FWD),
+            ("pp M2 enc", "pp M2", "single mask", FWD),
             ("pp M4 enc", "pp M4", "single mask", FWD), ("sp enc", "sp", "single mask", RING_FWD),
             ("p3 enc", "p3", "single mask", FWD), ("sptp enc", "sptp", "single mask", RING_FWD)]
 
@@ -351,9 +382,11 @@ ENCODERS = [("tp enc", "tp", "single", FWD), ("pp M2 enc", "pp M2", "single mask
                          ids=[e[0].replace(" enc", "") for e in ENCODERS])
 def test_encoder_forward_equals_sod_tpus(runs, got, mesh_ref, single_ref, tol):
     """Every layer's normed tokens [L, B, 17, D] against sod_tpu's on its
-    own mesh and on one device (PP, SP, p3, sptp with a token mask)."""
+    own mesh and on one device (PP, SP, p3, sptp with a token mask; TP at
+    model 4 with cut heads at d 32, and with attention whole and the MLP
+    sharded at d 30)."""
     out = runs[got]["out"]
-    assert out.shape == (4, 8, 17, 32)
+    assert out.shape == (4, 8, 17, 30 if "d30" in got else 32)
     for ref in (mesh_ref, single_ref):
         np.testing.assert_allclose(out, runs["ref"][ref]["out"], err_msg=ref, **tol)
 
@@ -373,7 +406,7 @@ def test_encoder_gradients_equal_sod_tpus(runs, got, mesh_ref, single_ref, tol):
 
 # ------------------------------------------------------------ the train step
 
-STEPS = ["tp", "pp", "sp", "dtp zero1", "p3", "p3 zero1", "sptp", "sptp zero1"]
+STEPS = ["tp", "tp4", "pp", "sp", "dtp zero1", "p3", "p3 zero1", "sptp", "sptp zero1"]
 
 
 @pytest.mark.parametrize("name", STEPS)
@@ -422,10 +455,11 @@ def test_full_is_refused_with_a_model_axis(runs):
 
 # ------------------------------------------------------------ the Evaluator
 
-@pytest.mark.parametrize("name", ["tp", "sp", "sptp"])
+@pytest.mark.parametrize("name", ["tp", "tp4", "sp", "sptp"])
 def test_evaluator_equals_sod_tpus(runs, name):
-    """6 canvas images at batch 4 under TP, SP (the canvas tokens round the
-    ring with their key masks) and sptp against sod_tpu's Evaluator."""
+    """6 canvas images at batch 4 under TP (model 2, and model 4 cutting the
+    2 heads), SP (the canvas tokens round the ring with their key masks) and
+    sptp against sod_tpu's Evaluator."""
     got, want = runs[f"{name} eval"], runs["ref"]["eval"]
     assert set(got) == set(want)
     for k in want:

@@ -59,7 +59,8 @@ def test_every_port_module_imports_without_jax_or_sod_tpu():
             "sod_tpu_torch.parallel.fsdp", "sod_tpu_torch.parallel.comm",
             "sod_tpu_torch.parallel.tp", "sod_tpu_torch.parallel.pp",
             "sod_tpu_torch.parallel.sp", "sod_tpu_torch.parallel.p3",
-            "sod_tpu_torch.parallel.sptp", "sod_tpu_torch.parallel.layouts"} <= set(mods)
+            "sod_tpu_torch.parallel.sptp", "sod_tpu_torch.parallel.layouts",
+            "sod_tpu_torch.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

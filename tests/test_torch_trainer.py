@@ -107,13 +107,14 @@ def test_cli_trains_and_resumes(workspace, capsys, two_threads):
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--tp", "2"],
                                    ["--pp", "2"], ["--sp", "2"],
                                    ["--fsdp", "zero1"], ["--async-checkpoint"],
-                                   ["--n_devices", "2", "--tp", "2"],
+                                   ["--n_devices", "2", "--tp", "2"], ["--tp", "4"],
                                    ["--tp", "9999"], ["--pp", "2", "--sp", "2"]])
 def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
     """Every flag is accepted as ``sod_tpu/cli/train.py:27-54, 96-140``
     takes it: ``--n_devices 2`` spawns two ranks of the CLI and ``--tp 2``,
     ``--pp 2`` or ``--sp 2`` two (one data rank on the CPU), ``--n_devices 2
-    --tp 2`` four (recorded here; spawned ranks run in
+    --tp 2`` four, ``--tp 4`` four, a model axis that cuts ViT-S's 6 heads
+    (recorded here; spawned ranks run in
     ``tests/test_torch_data_parallel.py`` and
     ``tests/test_torch_model_parallel.py``); more ranks than the host has
     raise ``sod_tpu``'s ``ValueError`` before any rendezvous, and ``--sp``
@@ -144,7 +145,7 @@ def test_cli_refuses_mesh_flags(workspace, flags, monkeypatch):
         monkeypatch.setattr(mesh_mod, "spawn_ranks",
                             lambda fn, n, *args: spawned.append((fn, n, args)))
         cli.main(argv)
-        n = 4 if len(flags) == 4 else 2
+        n = int(np.prod([int(v) for v in flags[1::2]]))
         passed = argv if flags[0] == "--n_devices" else [*argv, "--n_devices", "1"]
         assert spawned == [(cli._rank_main, n, (passed,))]
         return
