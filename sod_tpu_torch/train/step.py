@@ -52,6 +52,15 @@ Under a model-sharding layout (``apply_fn``: TP, PP, SP, p3, sptp) the
 forward is the layout's, ``layout`` holds this rank's shards and reduces as
 the layout says (``parallel/fsdp.py``); the rest of the step is the same.
 
+Spans (``utils/profiling.py``, recorded only while a profiler runs or under
+``profiling.recording()``): ``step`` over the whole step, with counts
+``rows`` and ``micro``; inside it ``forward`` (every forward, pass 1's
+too), ``criterion``, ``backward`` (every ``.backward()`` and pass 1's
+``autograd.grad``), one ``optimizer`` (the average of accumulated
+gradients, the norm, the update and ``merge_bn_stats``) and, under a
+layout, ``grad_sync`` (``gather``, ``reduce_grads``, ``publish`` and the
+metrics' all-reduces).
+
 ``make_eval_step``: the last layer's masks and objectness, for the
 visualizer hooks.
 """
@@ -71,6 +80,7 @@ from sod_tpu_torch.models.resnet import merge_bn_stats
 from sod_tpu_torch.parallel.mesh import (all_gather_into, batch_over, batch_sharding, data_group,
                                          data_size)
 from sod_tpu_torch.train.optim import ClippedAdamW, global_norm
+from sod_tpu_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "dice_loss", "ranking_loss", "classification_loss",
                "contrastive_loss", "iou", "grad_norm")
@@ -103,29 +113,36 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
     mesh = None if layout is None else layout.mesh
 
     def forward(batch):
-        x = batch["image"]
-        if x.dtype == torch.uint8:
-            x = normalize_device(x)
-        with batch_over(mesh) if mesh is not None else contextlib.nullcontext():
-            if apply_fn is not None:
-                return apply_fn(model, x.to(compute_dtype), train=True)
-            return model(x.to(compute_dtype), train=True)
+        with span("forward"):
+            x = batch["image"]
+            if x.dtype == torch.uint8:
+                x = normalize_device(x)
+            with batch_over(mesh) if mesh is not None else contextlib.nullcontext():
+                if apply_fn is not None:
+                    return apply_fn(model, x.to(compute_dtype), train=True)
+                return model(x.to(compute_dtype), train=True)
 
     def loss_fn(batch):
         out = forward(batch)
-        res = criterion_forward(
-            out["mask_pred"].float(), batch["gt_masks"].float(),
-            batch["gt_valid"], out.get("objectness"),
-            use_classification_loss=not cfg.use_binary_classifier,
-            features=out["features"].float(),
-            feature_labels=batch.get("labels"),
-            weight_contrastive_loss=cfg.weight_contrastive_loss,
-            temperature=cfg.temperature, mesh=mesh)
+        with span("criterion"):
+            res = criterion_forward(
+                out["mask_pred"].float(), batch["gt_masks"].float(),
+                batch["gt_valid"], out.get("objectness"),
+                use_classification_loss=not cfg.use_binary_classifier,
+                features=out["features"].float(),
+                feature_labels=batch.get("labels"),
+                weight_contrastive_loss=cfg.weight_contrastive_loss,
+                temperature=cfg.temperature, mesh=mesh)
         return res["loss"], res, out.get("batch_stats", {})
+
+    def backward(loss: torch.Tensor) -> None:
+        with span("backward"):
+            loss.backward()                       # sums into .grad
 
     def all_reduce(t: torch.Tensor) -> torch.Tensor:
         if mesh is not None:
-            dist.all_reduce(t, group=data_group(mesh))
+            with span("grad_sync"):
+                dist.all_reduce(t, group=data_group(mesh))
         return t
 
     def global_rows(local: torch.Tensor) -> torch.Tensor:
@@ -167,12 +184,14 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
                 z = global_rows(torch.cat([forward(mb)["features"].float()
                                            for mb in micro]))
             z.requires_grad_(True)
-            con_scaled = w_c * contrastive_loss(
-                z, global_rows(batch["labels"]), cfg.temperature,
-                valid=global_rows(img_valid)) / n_total
+            with span("criterion"):
+                con_scaled = w_c * contrastive_loss(
+                    z, global_rows(batch["labels"]), cfg.temperature,
+                    valid=global_rows(img_valid)) / n_total
             # the guards (fewer than two valid rows) return a constant 0
-            g_z = (torch.autograd.grad(con_scaled, z)[0] if con_scaled.requires_grad
-                   else torch.zeros_like(z))
+            with span("backward"):
+                g_z = (torch.autograd.grad(con_scaled, z)[0] if con_scaled.requires_grad
+                       else torch.zeros_like(z))
             con_scaled = con_scaled.detach()
             con_raw = con_scaled * n_total / w_c
             g_z = own_rows(g_z).chunk(accum_steps)
@@ -184,17 +203,18 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
         all_stats = []
         for k, mb in enumerate(micro):
             out = forward(mb)
-            res = criterion_forward(
-                out["mask_pred"].float(), mb["gt_masks"].float(), mb["gt_valid"],
-                out.get("objectness"),
-                use_classification_loss=not cfg.use_binary_classifier)
-            # the criterion normalises by the micro-batch's valid count
-            nk = mb["gt_valid"].any(dim=1).sum().clamp(min=1)
-            main_sum = res["avg_loss"] * nk
-            surrogate = main_sum / n_total
-            if g_z is not None:
-                surrogate = surrogate + (out["features"].float() * g_z[k]).sum()
-            surrogate.backward()                  # sums into .grad
+            with span("criterion"):
+                res = criterion_forward(
+                    out["mask_pred"].float(), mb["gt_masks"].float(), mb["gt_valid"],
+                    out.get("objectness"),
+                    use_classification_loss=not cfg.use_binary_classifier)
+                # the criterion normalises by the micro-batch's valid count
+                nk = mb["gt_valid"].any(dim=1).sum().clamp(min=1)
+                main_sum = res["avg_loss"] * nk
+                surrogate = main_sum / n_total
+                if g_z is not None:
+                    surrogate = surrogate + (out["features"].float() * g_z[k]).sum()
+            backward(surrogate)
             main_total = main_total + main_sum.detach()
             for key in diag:
                 diag[key] = diag[key] + res[key].detach().float() * nk
@@ -229,42 +249,51 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
                 for p in layout.params]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        with span("step", rows=batch["image"].shape[0], micro=accum_steps):
+            return one_step(batch)
+
+    def one_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if layout is None:
             optimizer.zero_grad()
         else:
-            layout.gather()                       # fsdp="full": the whole weights
+            with span("grad_sync"):
+                layout.gather()                   # fsdp="full": the whole weights
             model.zero_grad(set_to_none=True)
         if accum_steps > 1 and mode == "exact":
             loss, res, all_stats = exact_pass(batch)
             stats = mean_stats(all_stats)
         elif accum_steps <= 1:
             loss, res, stats = loss_fn(batch)
-            loss.backward()
+            backward(loss)
             loss, res = reduced(loss, res)
         else:
             losses, all_res, all_stats = [], [], []
             for micro in split(batch):
                 loss_k, res_k, stats_k = loss_fn(micro)
-                loss_k.backward()                 # sums into .grad
+                backward(loss_k)
                 loss_k, res_k = reduced(loss_k, res_k)
                 losses.append(loss_k.detach())
                 all_res.append(res_k)
                 all_stats.append(stats_k)
-            torch._foreach_div_(param_grads(), accum_steps)
             loss = torch.stack(losses).sum() / accum_steps
             res = {key: torch.stack([r[key].float() for r in all_res]).mean()
                    for key in _DIAG + ("avg_contrastive_loss",)}
             stats = mean_stats(all_stats)
-        if layout is None:
-            grad_norm = global_norm(optimizer.grads())
-            optimizer.step(grad_norm)
-        else:
-            grads = layout.reduce_grads()
-            grad_norm = layout.grad_norm(grads)
-            optimizer.step(grad_norm, grads=grads)
-            layout.publish()
-        if stats:
-            merge_bn_stats(model.encoder, stats)
+        with span("optimizer"):
+            if accum_steps > 1 and mode == "averaged":
+                torch._foreach_div_(param_grads(), accum_steps)
+            if layout is None:
+                grad_norm = global_norm(optimizer.grads())
+                optimizer.step(grad_norm)
+            else:
+                with span("grad_sync"):
+                    grads = layout.reduce_grads()
+                grad_norm = layout.grad_norm(grads)
+                optimizer.step(grad_norm, grads=grads)
+                with span("grad_sync"):
+                    layout.publish()
+            if stats:
+                merge_bn_stats(model.encoder, stats)
         return {"loss": loss.detach(),
                 "dice_loss": res["avg_dice_loss"].detach(),
                 "ranking_loss": res["avg_ranking_loss"].detach(),

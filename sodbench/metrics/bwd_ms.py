@@ -1,0 +1,8 @@
+"""bwd_ms.train: device ms between the CUDA events of the program's
+``backward`` spans (sod_tpu_torch.utils.profiling) in the traced window, per
+step (sodbench/program_spans.py)."""
+from sodbench import program_spans
+
+
+def read(name, run):
+    return program_spans.phase_ms(run, "backward")
