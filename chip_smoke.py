@@ -29,12 +29,23 @@ Phases, each printed as it passes; any failure exits non-zero:
    f32; TN: dWproj, dWqkv, dW2, dW1) and the LayerNorm backward, each
    against its plain version (bf16 within one ulp, f32 within 1e-5
    relative) and two runs bit for bit, timed the same way, with the plan,
-   TFLOP/s, ``torch.matmul`` and the bound;
+   TFLOP/s, ``torch.matmul`` and the bound.  Then ``ops/layers.py``'s bf16
+   linear at the ViT-S/8 train cell's shapes (B=64: QKV, proj, fc1, fc2 on
+   50240 rows; the patch embedding, whose input needs no gradient, and the
+   decoder's K/V on 50176; the decoder's query projection and FFN on 1280):
+   the f32-bias form of ``gemm_kernel`` alone against its plain version,
+   and ``linear_tc`` forward and backward against ``linear_f32``, the f32
+   products (y, dx, dW within one bf16 ulp, db within 1e-5 relative),
+   device ms from CUDA graphs beside the f32 products, ``torch.mm(...,
+   out_dtype=torch.float32)`` and the bound, and the host us a linear of
+   both paths;
 4. main path: the port's inference service at the full width of the
    shipped config (ViT-S/8 at 224 px, 6 decoder layers, 20 queries, bf16)
    with seeded random weights: ``model_step`` on 4 images and one B=8
-   forward, the kernel's launch count (12 per forward), agreement with the
-   same forward through the plain version, B=1 latency and B=8 img/s;
+   forward, the kernel's launch count (12 per forward), the ``linear_tc``
+   calls (none at one image's 784 patch rows; the patch embedding and the
+   decoder's 12 K and V projections in the B=8 forward), agreement with the same forward
+   through the plain version, B=1 latency and B=8 img/s;
 5. requests: three ``/predict`` requests through the web app with the
    port's service, masks decoded at the input size;
 6. K2: the flash attention forward (unmasked and masked) and backward
@@ -594,7 +605,8 @@ def gemm_bound(m: int, n: int, k: int, epilogue: str, ln: bool, a_bytes: int,
     bf16), the bias, the LN parameters, the residual and the output, each
     moved once."""
     out_bytes = 4 if epilogue == "res_f32" else 2
-    n_bytes = (m * k * a_bytes + 2 * n * k + 2 * n + (4 * k if ln else 0)
+    bias_bytes = 4 if epilogue == "f32bias_bf16" else 2
+    n_bytes = (m * k * a_bytes + 2 * n * k + bias_bytes * n + (4 * k if ln else 0)
                + m * n * (res_bytes + out_bytes))
     return roofline(2.0 * m * n * k, n_bytes)
 
@@ -831,6 +843,195 @@ def gemm_bwd_check():
     return report
 
 
+# ops/layers.py linear at the shapes of the vits8-train-b64 cell (B=64, 785
+# tokens: 50240 rows; 784 patches an image: 50176 rows, the patch embedding
+# and the decoder's K and V; 20 queries an image: 1280 rows, the decoder's
+# query and output projections and its FFN): (name, rows, N, K, x needs a
+# gradient; the patch embedding's image does not).  Bf16 linears with a bias
+# whose shapes gemm_kernel takes run ops/gemm.py linear_tc: the
+# "f32bias_bf16" form forward, gemm_nn (only where x needs a gradient) and
+# gemm_tn backward.
+LINEAR_SHAPES = (("qkv", 50240, 1152, 384, True), ("proj", 50240, 384, 384, True),
+                 ("fc1", 50240, 1536, 384, True), ("fc2", 50240, 384, 1536, True),
+                 ("patch", 50176, 384, 192, False), ("dec_kv", 50176, 384, 384, True),
+                 ("dec_q", 1280, 384, 384, True), ("dec_fc1", 1280, 1536, 384, True),
+                 ("dec_fc2", 1280, 384, 1536, True))
+LINEAR = {"route": "cuda", "source": "sod_tpu_torch/csrc/vit_block.cuh",
+          "replaces": "sod_tpu/ops/layers.py:98"}
+# host us a linear: LINEAR_HOST_CALLS linears on their own inputs and weights,
+# forward then one backward over all of them (one hand-off to autograd's
+# device thread, as in a step), LINEAR_HOST_REPS times
+LINEAR_HOST_CALLS, LINEAR_HOST_REPS = 16, 7
+
+
+def linear_bound(m: int, n: int, k: int, dx: bool = True) -> dict:
+    """The least time for ``linear_tc`` forward and backward: three products
+    of 2 m n k at the bf16 peak (two without dx), against x, W and the f32
+    bias read and y written (forward), then dy read twice (once), W (only
+    for dx) and x read, dx (only with it) and the f32 dW and db written
+    (backward), each once."""
+    uses = 3 if dx else 2
+    return roofline(2.0 * uses * m * n * k,
+                    uses * 2 * m * k + uses * 2 * m * n + (uses - 1) * 2 * n * k
+                    + 4 * n * k + 2 * 4 * n)
+
+
+def linear_host_us(fn, xs, ws, bs, gy, reps: int = LINEAR_HOST_REPS) -> float:
+    """Median host-clock us a linear of ``fn(x, w, b)`` over the inputs
+    ``xs``, ``ws``, ``bs``: every forward, then one backward over their
+    outputs, issued after a synchronize (the card runs behind: nothing
+    inside waits for it), over ``reps`` rounds."""
+    import torch
+
+    def run():
+        for t in (*xs, *ws, *bs):
+            t.grad = None
+        ys = [fn(x, w, b) for x, w, b in zip(xs, ws, bs)]
+        torch.autograd.backward(ys, [gy] * len(ys))
+
+    run()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        ts.append((time.perf_counter() - t) / len(xs))
+    torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+
+
+def linear_check():
+    """Phase 3, the bf16 linear: at each of ``LINEAR_SHAPES`` the
+    "f32bias_bf16" form alone against its plain version (one bf16 ulp), two
+    runs bit for bit, timed from CUDA graphs in turns with it and with
+    ``torch.mm(..., out_dtype=torch.float32)`` (cuBLAS, a yardstick the port
+    never calls); then ``linear`` forward and backward through ``linear_tc``
+    against the same call on the f32 products (``linear_f32``): y, dx and dW
+    within one bf16 ulp, db within ``GEMM_F32_REL``; both timed in turns from
+    CUDA graphs, beside the bound and the library's products; and the host us
+    a linear of each (``linear_host_us``).
+    Returns {name: (form entry, Function entry)} as tuples for the report."""
+    import torch
+
+    from sod_tpu_torch.ops import gemm as G
+    from sod_tpu_torch.ops import layers as L
+
+    rng = np.random.default_rng(5)
+    bf16 = torch.bfloat16
+
+    def mk(shape, scale=1.0, dtype=bf16):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale).to(
+            device="cuda", dtype=dtype)
+
+    def mm32(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    def held(got, ref, f32=False):
+        max_abs = float((got.detach().float() - ref.detach().float()).abs().max())
+        limit = GEMM_F32_REL * float(ref.abs().max()) if f32 else bf16_ulp_at(ref)
+        return max_abs, limit, bool(torch.isfinite(got).all()) and max_abs <= limit
+
+    report = {}
+    for name, m, n, k, x_grad in LINEAR_SHAPES:
+        x, w, b = mk((m, k)), mk((n, k), 0.02, torch.float32), mk((n,), 0.02, torch.float32)
+        w16 = w.to(bf16)
+        before = G.launches
+        got, again = G.gemm(x, w16, b, "f32bias_bf16"), G.gemm(x, w16, b, "f32bias_bf16")
+        torch.cuda.synchronize()
+        if G.launches - before != 2:
+            raise AssertionError(f"gemm counted {G.launches - before} launches for 2 calls")
+        form = held(got, G.gemm_reference(x, w16, b, "f32bias_bf16"))
+        same = torch.equal(got, again)
+        kern = lambda: G.gemm(x, w16, b, "f32bias_bf16")
+        plain = lambda: G.gemm_reference(x, w16, b, "f32bias_bf16")
+        wt = w16.t()
+        lib = lambda: mm32(x, wt)
+        p1, k1, l1, k2, l2, p2 = (graph_ms(plain, 5), graph_ms(kern), graph_ms(lib),
+                                  graph_ms(kern), graph_ms(lib), graph_ms(plain, 5))
+        ms, plain_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+        bound = gemm_bound(m, n, k, "f32bias_bf16", False, 2, 0)
+        flops = 2.0 * m * n * k
+        cfg, tiles, _ = G.plan(False, m, n, k)
+        print(f"  linear form {name:7s} M {m} N {n} K {k} ({cfg}, {tiles} column tiles an "
+              f"item): max_abs {form[0]:.4g} (<= {form[1]:.4g}), runs equal {same}; kernel "
+              f"{ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s {100 * flops / ms / 1e9 / 989:.1f}% "
+              f"of 989, torch.mm out_dtype f32 {lib_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, {ms / bound['bound_ms']:.2f}x) "
+              f"-> {'ok' if form[2] and same else 'FAIL'} [{CARD}]", flush=True)
+        if not (form[2] and same):
+            raise AssertionError(f"linear form {name} disagrees with its plain version or "
+                                 f"between runs")
+
+        # the whole Function against the f32 products, forward and backward
+        gy = mk((m, n), 0.5)
+        xs = [x.clone().requires_grad_(x_grad) for _ in range(2)]
+        ws = [w.clone().requires_grad_() for _ in range(2)]
+        bs = [b.clone().requires_grad_() for _ in range(2)]
+
+        def call(fn, i):
+            # y comes back without its autograd graph: a graph kept alive
+            # keeps the leaves' AccumulateGrad nodes on the stream they were
+            # made on (the legacy stream here), and a CUDA graph's captured
+            # backward would then make that stream wait on the capturing one
+            xs[i].grad = ws[i].grad = bs[i].grad = None
+            y = fn(xs[i], ws[i], bs[i])
+            y.backward(gy)
+            return y.detach()
+
+        before = (L.tc_linears, G.launches, G.nn_launches, G.tn_launches)
+        y_tc = call(L.linear, 0)
+        after = (L.tc_linears, G.launches, G.nn_launches, G.tn_launches)
+        y_32 = call(L.linear_f32, 1)
+        torch.cuda.synchronize()
+        want = (1, 1, int(x_grad), 1)
+        if tuple(a - c for a, c in zip(after, before)) != want:
+            raise AssertionError(f"linear {name}: {after} after {before}, want {want}: one "
+                                 f"call through linear_tc and one launch of each product")
+        checks = [held(y_tc, y_32), held(ws[0].grad, ws[1].grad),
+                  held(bs[0].grad, bs[1].grad, f32=True)]
+        if x_grad:
+            checks.insert(1, held(xs[0].grad, xs[1].grad))
+        ok = (all(c[2] for c in checks) and ws[0].grad.dtype == torch.float32
+              and (x_grad or xs[0].grad is None))
+        tc = lambda: call(L.linear, 0)
+        f32 = lambda: call(L.linear_f32, 1)
+        gyt = gy.t()
+        lib_fns = (lambda: mm32(x, wt), lambda: mm32(gy, w16), lambda: mm32(gyt, x))
+        if not x_grad:
+            lib_fns = lib_fns[0], lib_fns[2]
+        libs = lambda: [f() for f in lib_fns]
+        f1, t1, t2, f2 = graph_ms(f32, 5), graph_ms(tc, 10), graph_ms(tc, 10), graph_ms(f32, 5)
+        fn_ms, f32_ms = (t1 + t2) / 2, (f1 + f2) / 2
+        libs_ms = (graph_ms(libs, 5) + graph_ms(libs, 5)) / 2
+        many = [[t.detach().clone().requires_grad_(t is not x or x_grad)
+                 for _ in range(LINEAR_HOST_CALLS)] for t in (x, w, b)]
+        h32a, htca, htcb, h32b = (linear_host_us(f, *many, gy)
+                                  for f in (L.linear_f32, L.linear, L.linear, L.linear_f32))
+        h_tc, h_32 = (htca + htcb) / 2, (h32a + h32b) / 2
+        del many
+        fb = linear_bound(m, n, k, x_grad)
+        print(f"  linear {name:7s} forward + backward: max_abs y / "
+              f"{'dx / ' if x_grad else ''}dW / db "
+              + " / ".join(f"{c[0]:.4g} (<= {c[1]:.4g})" for c in checks)
+              + f"; linear_tc {fn_ms:.4f} ms ({len(lib_fns) * flops / fn_ms / 1e9:.1f} "
+              f"TFLOP/s), f32 products {f32_ms:.3f} ms ({f32_ms / fn_ms:.2f}x), torch.mm "
+              f"out_dtype f32 x{len(lib_fns)} {libs_ms:.4f} ms, bound {fb['bound_ms']:.4f} ms "
+              f"({fb['bound_by']}, {fn_ms / fb['bound_ms']:.2f}x); host us a call {h_tc:.1f} "
+              f"linear_tc vs {h_32:.1f} f32 -> {'ok' if ok else 'FAIL'} [{CARD}]", flush=True)
+        if not ok:
+            raise AssertionError(f"linear {name} through linear_tc disagrees with the f32 "
+                                 f"products")
+        report[name] = ((form[0], ms, plain_ms, bound, lib_ms),
+                        (max(c[0] for c in checks), fn_ms, f32_ms, fb, libs_ms,
+                         {"host_us": h_tc, "plain_host_us": h_32}))
+        del x, w, b, w16, gy, xs, ws, bs, y_tc, y_32
+        torch.cuda.empty_cache()
+    phase(3, f"the bf16 linear (linear_tc: the f32-bias form, gemm_nn, gemm_tn) matches its "
+             f"plain version and the f32 products at {len(LINEAR_SHAPES)} shapes of the train "
+             f"cell")
+    return report
+
+
 def plain_encoder(vit, x):
     """The fused encoder path of ``vit_apply`` with the kernel's plain
     version in place of the kernel (for the ``encoder_apply`` hook): K8's
@@ -900,6 +1101,8 @@ def main_path():
 
     from sod_tpu_torch.config import load_config
     from sod_tpu_torch.ops import fused_block as fb
+    from sod_tpu_torch.ops import gemm as G
+    from sod_tpu_torch.ops import layers as L
     from sod_tpu_torch.serving.inference import SelfMaskInference
 
     cfg = load_config(CONFIG)
@@ -913,18 +1116,31 @@ def main_path():
     imgs = rng.integers(0, 256, (4, size, size, 3), dtype=np.uint8)
     batch = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
 
-    fb.launches = 0
+    fb.launches = L.tc_linears = L.f32_linears = G.launches = 0
     steps = [svc.model_step(im) for im in imgs]
+    step_linears = L.tc_linears, G.launches, L.f32_linears
     m8, o8 = svc.forward_u8(batch)
     m8, o8 = m8.cpu().numpy(), o8.cpu().numpy()
+    b8_linears = tuple(a - c for a, c in zip((L.tc_linears, G.launches, L.f32_linears),
+                                             step_linears))
     launches = fb.launches
     n_forwards = len(imgs) + 1
     depth = svc.mcfg.vit.depth
-    print(f"  fused block launches: {launches} over {n_forwards} forwards",
+    print(f"  fused block launches: {launches} over {n_forwards} forwards; linear_tc calls "
+          f"/ f32-bias form launches / bf16 linears left on f32: {step_linears} over "
+          f"{len(imgs)} model_step calls (784 patch rows), {b8_linears} in the B=8 forward",
           flush=True)
     if launches != depth * n_forwards:
         raise AssertionError(f"expected {depth} launches per forward, got "
                              f"{launches} for {n_forwards} forwards")
+    # the patch embedding and the decoder's K and V projections of memory:
+    # 8 x 784 patch rows take linear_tc (one f32-bias launch each), one
+    # image's 784 rows do not
+    tc = 1 + 2 * svc.mcfg.n_decoder_layers
+    if step_linears[:2] != (0, 0) or b8_linears[:2] != (tc, tc):
+        raise AssertionError(f"expected no linear_tc call in model_step and {tc} (the patch "
+                             f"embedding, the decoder's K and V) in the B=8 forward, got "
+                             f"{step_linears} and {b8_linears}")
 
     mask1 = np.stack([m for m, _ in steps]).astype(np.float32) / 255.0
     obj1 = np.stack([o for _, o in steps])
@@ -959,7 +1175,7 @@ def main_path():
              f"plain version (objectness <= {PATH_OBJ_TOL}, mask max <= "
              f"{PATH_MASK_MAX}, mean <= {PATH_MASK_MEAN}), B=1 {lat['kernel B=1 ms']:.3f} ms, "
              f"B=8 {lat['kernel B=8 img/s']:.1f} img/s")
-    return svc, cfg, launches
+    return svc, cfg, launches, {"model_step": step_linears[0], "forward B=8": b8_linears[0]}
 
 
 class Client:
@@ -4906,7 +5122,8 @@ def main():
     max_abs, timings = kernel_check()
     gemms = gemm_check()
     gemms_bwd = gemm_bwd_check()
-    svc, cfg, launches = main_path()
+    linears = linear_check()
+    svc, cfg, launches, main_linears = main_path()
     try:
         requests_phase(svc, cfg)
         # beside the bf16 service while it is up
@@ -4988,6 +5205,19 @@ def main():
                    name=name if name.startswith("ln_") else f"gemm_{name}")
         report.append(entry(src, n_launches, err, ms, plain_ms, bound, lib_ms,
                             launches_rule=rule, **extra))
+    # the bf16 linear at the train cell's shapes: the f32-bias form alone
+    # and linear_tc forward and backward against linear_f32 (device time,
+    # from CUDA graphs).  The main path's count is phase 4's: the patch
+    # embedding and the decoder's K and V in the B=8 forward, one f32-bias
+    # launch each (none at model_step's 784 rows)
+    n_tc = main_linears["forward B=8"]
+    for name, (form, fn) in linears.items():
+        report.append(entry(dict(LINEAR, name=f"gemm_f32bias_{name}"), n_tc, *form,
+                            launches_rule="one per linear_tc call",
+                            main_path_calls=main_linears))
+        report.append(entry(dict(LINEAR, name=f"linear_tc_{name}"), n_tc, *fn[:5],
+                            launches_rule="ops/layers.py tc_linears",
+                            main_path_calls=main_linears, **fn[5]))
     # K8's s8 products alone at B=8 (device time, from CUDA graphs), launched
     # inside K8's chain: one of each per K8 launch
     for name, (err, ms, plain_ms, bound, lib_ms) in k8_forms.items():

@@ -47,7 +47,8 @@
 // The library also launches gemm_kernel alone for ops/gemm.py: its forward
 // forms (sod_gemm), the backward products of K3 and K4 (sod_gemm_nn,
 // sod_gemm_tn) and their LayerNorm backward (sod_ln_bwd), with the plans
-// they take (sod_gemm_plan).
+// they take (sod_gemm_plan).  The same three products carry ops/layers.py's
+// bf16 `linear` on the card, forward and backward (ops/gemm.py `linear_tc`).
 
 #include "vit_block.cuh"
 
@@ -81,10 +82,12 @@ extern "C" int sod_fused_vit_block(
     return (int)err;
 }
 
-// One forward GEMM of the block alone (timing and checks): form 0 = LN of
+// One forward GEMM alone (timing and checks; form 4 is also every bf16
+// linear of the unfused model on the card): form 0 = LN of
 // bf16 rows + bias -> bf16 (QKV), 1 = + bias + bf16 residual -> f32 (proj),
 // 2 = LN of f32 rows + bias, tanh-GELU -> bf16 (fc1), 3 = + bias + f32
-// residual -> bf16 (fc2).  Returns a cudaError_t.
+// residual -> bf16 (fc2), 4 = + f32 bias -> bf16 (ops/layers.py `linear`;
+// no LN, no residual).  Returns a cudaError_t.
 extern "C" int sod_gemm(int form, const void* a, const void* ln_w, const void* ln_b,
                         const void* w, const void* bias, const void* res, void* out, int M,
                         int N, int K, float eps, void* stream_ptr) {
@@ -98,6 +101,8 @@ extern "C" int sod_gemm(int form, const void* a, const void* ln_w, const void* l
             a, ln_w, ln_b, eps, w, bias, nullptr, out, M, N, K, stream);
         case 3: return (int)launch_gemm<EPI_RES_BF16, false, bf16>(
             a, nullptr, nullptr, 0.f, w, bias, res, out, M, N, K, stream);
+        case 4: return (int)launch_gemm<EPI_FBIAS_BF16, false, bf16>(
+            a, nullptr, nullptr, 0.f, w, bias, nullptr, out, M, N, K, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

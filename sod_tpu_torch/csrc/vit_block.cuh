@@ -74,11 +74,14 @@
 
 namespace sod {
 
-// Epilogues: v = the f32 accumulator, b = bias (bf16), res = residual.
+// Epilogues: v = the f32 accumulator, b = bias (bf16; f32 in FBIAS_BF16),
+// res = residual.
 //   BIAS_BF16: bf16(v + b)                  GELU_BF16: bf16(tanh-GELU(v + b))
 //   RES_F32:   f32((x0 + v) + b), x0 bf16   RES_BF16:  bf16((x1 + v) + b), x1 f32
 //   RESB_BF16: bf16((x + v) + b), x bf16
 //   BIAS_F32:  f32(v + b)
+//   FBIAS_BF16: bf16(v + b) with b f32 (ops/layers.py `linear`: the f32 bias
+//       added to the f32 product, one rounding)
 //   GELU_SAVE_BF16: GELU_BF16, and bf16(v + b) (the pre-GELU hidden) to out2
 // and without a bias (the backward):
 //   BF16: bf16(v)                           F32: f32(v)
@@ -90,7 +93,7 @@ namespace sod {
 //       h and W1, b its fc1 bias), the f32 hidden never stored
 enum Epilogue { EPI_BIAS_BF16 = 0, EPI_GELU_BF16 = 1, EPI_RES_F32 = 2, EPI_RES_BF16 = 3,
                 EPI_RESB_BF16 = 4, EPI_BIAS_F32 = 5, EPI_GELU_SAVE_BF16 = 6, EPI_BF16 = 7,
-                EPI_F32 = 8, EPI_DGELU_BF16 = 9, EPI_DGELU_RC = 10 };
+                EPI_F32 = 8, EPI_DGELU_BF16 = 9, EPI_DGELU_RC = 10, EPI_FBIAS_BF16 = 11 };
 
 // Operand layouts of C[M, N] = sum over k of A(m, k) B(k, n), as stored
 enum Layout { L_NT = 0,      // A [M][K], B [N][K]
@@ -407,7 +410,7 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
 }
 
 __host__ __device__ constexpr bool epi_has_bias(int epi) {
-    return epi <= EPI_GELU_SAVE_BF16 || epi == EPI_DGELU_RC;
+    return epi <= EPI_GELU_SAVE_BF16 || epi == EPI_DGELU_RC || epi == EPI_FBIAS_BF16;
 }
 __host__ __device__ constexpr bool epi_dgelu(int epi) { return epi_kind(epi) != 0; }
 // the epilogue reads a second [M, N] input (`res`): a residual or the kept hidden
@@ -424,6 +427,15 @@ __device__ __forceinline__ float2 load_res(const void* __restrict__ res, size_t 
         __ldg(reinterpret_cast<const unsigned int*>(reinterpret_cast<const bf16*>(res) + o)));
 }
 
+// the bias pair at column c as f32 (an f32 bias for FBIAS_BF16, else bf16)
+template <int EPI>
+__device__ __forceinline__ float2 load_bias(const void* __restrict__ bias, int c) {
+    if (EPI == EPI_FBIAS_BF16)
+        return __ldg(reinterpret_cast<const float2*>(reinterpret_cast<const float*>(bias) + c));
+    return bf16x2_to_float2(
+        __ldg(reinterpret_cast<const unsigned int*>(reinterpret_cast<const bf16*>(bias) + c)));
+}
+
 // Epilogue of two neighbouring columns (col, col + 1) of one row, in
 // registers: v the f32 accumulators, b the bias, x the pair of `res` (read
 // by the RES and DGELU forms); o = row * N + col.  DGELU leaves the f32 da
@@ -431,7 +443,7 @@ __device__ __forceinline__ float2 load_res(const void* __restrict__ res, size_t 
 template <int EPI>
 __device__ __forceinline__ void epilogue_pair(float& v0, float& v1, float2 b, float2 x, size_t o,
                                               void* __restrict__ out, void* __restrict__ out2) {
-    if (EPI == EPI_BIAS_BF16) {
+    if (EPI == EPI_BIAS_BF16 || EPI == EPI_FBIAS_BF16) {
         *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) = pack_bf16(v0 + b.x, v1 + b.y);
     } else if (EPI == EPI_GELU_BF16 || EPI == EPI_GELU_SAVE_BF16) {
         const float h0 = v0 + b.x, h1 = v1 + b.y;
@@ -498,7 +510,7 @@ __global__ void __launch_bounds__(128 * WG + 32)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
             const __grid_constant__ CUtensorMap map_a2, const __grid_constant__ CUtensorMap map_w2,
             const InT* __restrict__ a_in, const bf16* __restrict__ ln_w,
-            const bf16* __restrict__ ln_b, float eps, const bf16* __restrict__ bias,
+            const bf16* __restrict__ ln_b, float eps, const void* __restrict__ bias,
             const void* __restrict__ res, void* __restrict__ out, void* __restrict__ out2,
             float* __restrict__ colsum, int M, int N, int K, int tiles, int k_split) {
     constexpr bool DUAL = EPI == EPI_DGELU_RC;
@@ -644,9 +656,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         float2 bv[BNT / 8];
 #pragma unroll
         for (int i = 0; i < BNT / 8; ++i)
-            bv[i] = epi_has_bias(EPI)
-                ? bf16x2_to_float2(__ldg(reinterpret_cast<const unsigned int*>(bias + n0 + 8 * i + 2 * t)))
-                : make_float2(0.f, 0.f);
+            bv[i] = epi_has_bias(EPI) ? load_bias<EPI>(bias, n0 + 8 * i + 2 * t)
+                                      : make_float2(0.f, 0.f);
         wgmma_wait_pending<0>();
         mbar_arrive_if(empty + 8 * ((j - 1) % STAGES), lane == 0);
         acc_fence(acc);
@@ -906,8 +917,16 @@ struct GemmArgs {
 
 template <int EPI, bool LN, typename InT, int WG, int BNT, bool PANEL, int LAY>
 cudaError_t launch_gemm_config(const GemmArgs& g, GemmPlan p, cudaStream_t stream) {
+    // a runtime call first: on a thread with no current context yet (the
+    // autograd engine's device thread, when its first work is this launch)
+    // it makes the device's primary context current, which
+    // cuTensorMapEncodeTiled needs
+    const size_t smem = gemm_smem(GemmConfig{WG, BNT, PANEL}, g.K, epi_kind(EPI));
+    auto kernel = gemm_kernel<EPI, LN, InT, WG, BNT, PANEL, LAY>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
     CUtensorMap map_a{}, map_w{}, map_a2{}, map_w2{};
-    cudaError_t err;
     if (LAY == L_NT) {
         err = make_tensor_map(&map_w, g.w, g.N, g.K, BNT);
         if (err == cudaSuccess && sizeof(InT) == 2) err = make_tensor_map(&map_a, g.a, g.M, g.K, 64 * WG);
@@ -922,16 +941,12 @@ cudaError_t launch_gemm_config(const GemmArgs& g, GemmPlan p, cudaStream_t strea
         if (err == cudaSuccess) err = make_tensor_map(&map_w2, g.w2, g.N, g.K, BNT);
     }
     if (err != cudaSuccess) return err;
-    const size_t smem = gemm_smem(GemmConfig{WG, BNT, PANEL}, g.K, epi_kind(EPI));
-    auto kernel = gemm_kernel<EPI, LN, InT, WG, BNT, PANEL, LAY>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
     const int groups = (g.N / BNT + p.tiles - 1) / p.tiles;
     const int splits = LAY == L_TN ? (g.K + p.split - 1) / p.split : 1;
     kernel<<<dim3(groups, (g.M + 64 * WG - 1) / (64 * WG), splits), 128 * WG + 32, smem, stream>>>(
         map_a, map_w, map_a2, map_w2, static_cast<const InT*>(g.a),
         static_cast<const bf16*>(g.ln_w), static_cast<const bf16*>(g.ln_b), g.eps,
-        static_cast<const bf16*>(g.bias), g.res, g.out, g.out2, static_cast<float*>(g.colsum),
+        g.bias, g.res, g.out, g.out2, static_cast<float*>(g.colsum),
         g.M, g.N, g.K, p.tiles, p.split);
     return cudaGetLastError();
 }

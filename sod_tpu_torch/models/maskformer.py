@@ -148,6 +148,9 @@ def forward_transformer_decoder(model: "MaskFormer", memory: torch.Tensor,
         memory_mask) -> tgt`` run in place of each layer's forward (the
         tensor-parallel layer, ``parallel/tp.py``)."""
     b, _, d = memory.shape
+    # the patch tokens are a slice of the encoder's tokens; one copy here
+    # makes every layer's K and V rows contiguous (ops/layers.py linear)
+    memory = memory.contiguous()
     query_pos = model.query_embed.to(memory.dtype).expand(b, -1, d)
     tgt = torch.zeros_like(query_pos)
     per_layer = []

@@ -1,4 +1,5 @@
-"""One forward GEMM of the ViT block kernels, launched alone.
+"""The GEMM of the ViT block kernels, launched alone, and the port's bf16
+linear on it.
 
 The projections of K1, K3, K4 and K5 are one CUDA routine,
 ``gemm_kernel`` in ``sod_tpu_torch/csrc/vit_block.cuh`` (its header says
@@ -13,6 +14,11 @@ K1 calls them, through the C entry ``sod_gemm`` of
     "res_f32"    no    bf16   bf16   f32    proj (x1 = (x0 + v) + b)
     "gelu_bf16"  yes   f32    -      bf16   fc1
     "res_bf16"   no    bf16   f32    bf16   fc2 (out = (x1 + v) + b)
+
+and a fifth, with an f32 bias (the others take a bf16 one), for
+``ops/layers.py`` ``linear``:
+
+    "f32bias_bf16"  no  bf16   -      bf16   bf16(v + b), b f32
 
 The backward products of K3 and K4 are the same routine in two more
 operand layouts, launched alone here as the chains call them (C entries
@@ -35,6 +41,13 @@ launches its kernel for a CUDA tensor and raises if the build or the launch
 fails; it runs its plain version (``gemm_reference``, ``gemm_nn_reference``,
 ``gemm_tn_reference``, ``ln_backward_reference``) only for a tensor on the
 CPU.
+
+``linear_tc`` is ``ops/layers.py`` ``linear`` with a bias as one autograd
+Function of three of these products: y = gemm(x, bf16(W), f32 b,
+"f32bias_bf16"); dx = gemm_nn(dy, bf16(W), "bf16"); dW = f32(bf16(gemm_tn(dy,
+x))), the backward of ``weight.to(bf16)``; db = the f32 column sums of dy.
+It saves the bf16 x and the bf16 weight, never an f32 copy.  ``linear``
+sends it the bf16 CUDA calls that ``linear_takes`` accepts.
 """
 from __future__ import annotations
 
@@ -53,8 +66,9 @@ from sod_tpu_torch.ops.layers import layer_norm
 FORMS = {("bias_bf16", True, torch.bfloat16, None): 0,
          ("res_f32", False, torch.bfloat16, torch.bfloat16): 1,
          ("gelu_bf16", True, torch.float32, None): 2,
-         ("res_bf16", False, torch.bfloat16, torch.float32): 3}
-EPILOGUES = ("bias_bf16", "res_f32", "gelu_bf16", "res_bf16")
+         ("res_bf16", False, torch.bfloat16, torch.float32): 3,
+         ("f32bias_bf16", False, torch.bfloat16, None): 4}
+EPILOGUES = ("bias_bf16", "res_f32", "gelu_bf16", "res_bf16", "f32bias_bf16")
 # the kernel's configurations (csrc/vit_block.cuh GEMM_CONFIG): rows x
 # columns of a tile, A's row panel kept ("panel") or streamed beside W
 CONFIGS = ("panel128x128", "panel64x128", "panel64x64",
@@ -103,6 +117,18 @@ def _lib():
     return lib
 
 
+def _launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``dev`` the current device and ``stream``
+    the handle of its current stream; returns the entry's cudaError_t.
+    Switches device only when ``dev`` is not the current one."""
+    current = torch.cuda.current_device()
+    idx = current if dev.index is None else dev.index
+    if idx == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
 def plan(ln: bool, m: int, n: int, k: int, layout: str = "nt",
          dgelu: Optional[str] = None) -> Tuple[str, int, int]:
     """The configuration, column tiles per block and rows per split (TN;
@@ -139,9 +165,28 @@ def _check(a, w, bias, epilogue, ln, res) -> int:
     key = (epilogue, ln is not None, a.dtype, None if res is None else res.dtype)
     if key not in FORMS:
         raise ValueError(f"no kernel form for {key}; forms: {sorted(FORMS, key=str)}")
-    if w.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16:
-        raise ValueError("w and bias must be bfloat16")
+    bias_dtype = torch.float32 if epilogue == "f32bias_bf16" else torch.bfloat16
+    if w.dtype != torch.bfloat16 or bias.dtype != bias_dtype:
+        raise ValueError(f"w must be bfloat16 and bias {bias_dtype} for {epilogue!r}")
     return FORMS[key]
+
+
+def tc_shape(m: int, n: int, k: int) -> bool:
+    """Whether a linear of [m, k] rows by an (n, k) weight is a shape that
+    ``gemm_kernel`` takes in all three of ``linear_tc``'s products: the
+    forward [m, k] . [n, k]^T (``_check``: m, n % 64, k % 32), dx = [m, n] .
+    [n, k] (``_check_nn``: m, k % 64, n % 32) and dW = [m, n]^T . [m, k]
+    (``gemm_tn``: all three % 64)."""
+    return m > 0 and m % 64 == 0 and n % 64 == 0 and k % 64 == 0
+
+
+def linear_takes(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether ``linear_tc`` takes ``linear(x, weight, bias)`` for bf16 x
+    [..., K]: a bias, a shape ``tc_shape`` accepts, and x one contiguous,
+    16-byte aligned [M, K] matrix (the kernels' layout, ``_on_card``)."""
+    k = x.shape[-1]
+    return (bias is not None and k > 0 and tc_shape(x.numel() // k, weight.shape[0], k)
+            and x.is_contiguous() and x.data_ptr() % 16 == 0)
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: str,
@@ -165,9 +210,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: str,
     out = torch.empty(m, n, device=a.device,
                       dtype=torch.float32 if epilogue == "res_f32" else torch.bfloat16)
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    with torch.cuda.device(a.device):
-        rc = _kernel()(form, *ptrs, out.data_ptr(), m, n, k, eps,
-                       torch.cuda.current_stream(a.device).cuda_stream)
+    rc = _launch(a.device, _kernel(), form, *ptrs, out.data_ptr(), m, n, k, eps)
     if rc != 0:
         raise RuntimeError(f"gemm launch failed: cudaError {rc}")
     global launches
@@ -183,9 +226,10 @@ def gemm_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """Plain PyTorch version with the kernel's rounding points, for any
     input dtypes: A = bf16(LayerNorm(f32(a))) (LN parameters as bf16) or
-    f32(a); v = A . bf16(W)^T in f32; bias as bf16 added in f32; then
-    bias_bf16: bf16(v + b); res_f32: f32((res + v) + b); gelu_bf16:
-    bf16(tanh-GELU(v + b)); res_bf16: bf16((res + v) + b)."""
+    f32(a); v = A . bf16(W)^T in f32; bias as bf16 added in f32 (f32bias_bf16:
+    f32(bias), unrounded); then bias_bf16 and f32bias_bf16: bf16(v + b);
+    res_f32: f32((res + v) + b); gelu_bf16: bf16(tanh-GELU(v + b));
+    res_bf16: bf16((res + v) + b)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
     bf16 = torch.bfloat16
@@ -194,8 +238,8 @@ def gemm_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         x = layer_norm(x, ln[0].to(bf16).float(), ln[1].to(bf16).float(),
                        eps).to(bf16).float()
     v = torch.matmul(x, w.to(bf16).float().t())
-    b = bias.to(bf16).float()
-    if epilogue == "bias_bf16":
+    b = bias.float() if epilogue == "f32bias_bf16" else bias.to(bf16).float()
+    if epilogue in ("bias_bf16", "f32bias_bf16"):
         return (v + b).to(bf16)
     if epilogue == "gelu_bf16":
         h = v + b
@@ -284,8 +328,7 @@ def gemm_nn(a: torch.Tensor, w: torch.Tensor, epilogue: str, pre=None):
         colsum = torch.empty(n, device=dev, dtype=f32)
     ptrs = [None if t is None else t.data_ptr()
             for t in (a, w, kept, h, w1, b1, out, out2, part, colsum)]
-    with torch.cuda.device(dev):
-        rc = _lib().sod_gemm_nn(form, *ptrs, m, n, k, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _launch(dev, _lib().sod_gemm_nn, form, *ptrs, m, n, k)
     if rc != 0:
         raise RuntimeError(f"gemm_nn launch failed: cudaError {rc}")
     _count("nn")
@@ -331,9 +374,8 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty(ka, nb, device=dev, dtype=torch.float32)
     part = torch.empty(max(1, lib.sod_gemm_tn_part_floats(m, ka, nb)), device=dev,
                        dtype=torch.float32)
-    with torch.cuda.device(dev):
-        rc = lib.sod_gemm_tn(a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), m, ka,
-                             nb, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _launch(dev, lib.sod_gemm_tn, a.data_ptr(), b.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), m, ka, nb)
     if rc != 0:
         raise RuntimeError(f"gemm_tn launch failed: cudaError {rc}")
     _count("tn")
@@ -367,10 +409,8 @@ def ln_backward(x: torch.Tensor, dh: torch.Tensor, g: torch.Tensor, ln_w: torch.
     dx = torch.empty_like(x)
     part = torch.empty(lib.sod_ln_bwd_part_floats(m, k), device=dev, dtype=torch.float32)
     out3 = torch.empty(3, k, device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        rc = lib.sod_ln_bwd(x.data_ptr(), dh.data_ptr(), g.data_ptr(), ln_w.data_ptr(), eps,
-                            dx.data_ptr(), part.data_ptr(), out3.data_ptr(), m, k,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    rc = _launch(dev, lib.sod_ln_bwd, x.data_ptr(), dh.data_ptr(), g.data_ptr(), ln_w.data_ptr(),
+                 eps, dx.data_ptr(), part.data_ptr(), out3.data_ptr(), m, k)
     if rc != 0:
         raise RuntimeError(f"ln_backward launch failed: cudaError {rc}")
     _count("ln_bwd")
@@ -387,3 +427,47 @@ def ln_backward_reference(x: torch.Tensor, dh: torch.Tensor, g: torch.Tensor,
     xhat, inv = _ln_pieces(x.float(), w, eps)
     dx, dls, dlb, dg = _ln_bwd_rows(dh.float(), xhat, inv, w, g.float())
     return dx.to(x.dtype), dls, dlb, dg
+
+
+# ---------------------------------------------------------------------------
+# ops/layers.py's bf16 linear on these products
+# ---------------------------------------------------------------------------
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not):
+    the weight, the bias and dy, which ``linear_takes`` does not see."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _LinearTC(torch.autograd.Function):
+    """y = bf16(x . bf16(W)^T + f32(b)) over x's last axis, with
+    ``linear``'s rounding points in both directions (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        k = x.shape[-1]
+        w = _dense(weight.to(torch.bfloat16))
+        y = gemm(x.view(-1, k), w, _dense(bias.float()), "f32bias_bf16")
+        ctx.save_for_backward(x, w)
+        ctx.dtypes = weight.dtype, bias.dtype
+        return y.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        want_x, want_w, want_b = ctx.needs_input_grad
+        g = _dense(dy.reshape(-1, w.shape[0]))
+        dx = gemm_nn(g, w, "bf16").view(x.shape) if want_x else None
+        dw = (gemm_tn(g, x.view(-1, x.shape[-1])).to(torch.bfloat16).to(ctx.dtypes[0])
+              if want_w else None)
+        db = g.sum(0, dtype=torch.float32).to(ctx.dtypes[1]) if want_b else None
+        return dx, dw, db
+
+
+def linear_tc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``ops/layers.py`` ``linear(x, weight, bias)`` for bf16 x [..., K]
+    that ``linear_takes`` accepts, through ``gemm``, ``gemm_nn`` and
+    ``gemm_tn`` (their plain versions on the CPU)."""
+    return _LinearTC.apply(x, weight, bias)

@@ -4,10 +4,14 @@ Conventions:
 
 * weights are in the torch ``nn.Linear`` layout (out, in), as in the
   reference's state dicts; ``sod_tpu`` stores (in, out);
-* every product runs on f32 copies of its operands and the bias is added in
-  f32 before the one cast back to the input dtype, which is exactly
-  ``sod_tpu``'s bf16 x bf16 -> f32 accumulation (a bf16 x bf16 product is
-  exact in f32);
+* a product is ``sod_tpu``'s bf16 x bf16 -> f32 accumulation (a bf16 x
+  bf16 product is exact in f32), the f32 bias added to it before the one
+  cast back to the input dtype.  ``linear`` takes it on the card's tensor
+  cores for the bf16 CUDA calls that ``ops/gemm.py`` ``linear_takes``
+  accepts (``linear_tc``: the port's own wgmma GEMM in both
+  directions; only the order of the f32 sums differs); every other call
+  (f32 inputs, the CPU, no bias, other shapes) runs on f32 copies of its
+  operands;
 * LayerNorm is f32 math with a two-pass variance.
 
 The ``nn.Module`` classes only hold parameters under the reference's key
@@ -20,6 +24,7 @@ distributions and return tensors under the torch names).
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -76,11 +81,38 @@ def layer_norm_init(dim: int) -> Dict[str, torch.Tensor]:
     return {"weight": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
+tc_linears = 0                 # linear calls through ops/gemm.py linear_tc
+f32_linears = 0                # bf16 linear calls on the card left on the f32 products
+_count_lock = threading.Lock()
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x . weight^T + bias`` in f32, cast back to ``x.dtype``.  The weight
     is first rounded to ``x.dtype`` (``sod_tpu``'s ``w.astype(x.dtype)``:
-    f32 master weights meet bf16 activations as bf16); the bias stays f32."""
+    f32 master weights meet bf16 activations as bf16); the bias stays f32.
+    Bf16 CUDA calls that ``ops/gemm.py`` ``linear_takes`` accepts run
+    ``linear_tc``."""
+    global tc_linears, f32_linears
+    if x.dtype == torch.bfloat16 and _on_card(x):
+        from sod_tpu_torch.ops import gemm      # gemm imports this module
+        if gemm.linear_takes(x, weight, bias):
+            with _count_lock:
+                tc_linears += 1
+            return gemm.linear_tc(x, weight, bias)
+        with _count_lock:
+            f32_linears += 1
+    return linear_f32(x, weight, bias)
+
+
+def linear_f32(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``linear`` on f32 copies of its operands: every call that
+    ``linear_tc`` does not take."""
     y = torch.matmul(x.float(), weight.to(x.dtype).float().t())
     if bias is not None:
         y = y + bias.float()

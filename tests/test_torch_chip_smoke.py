@@ -93,6 +93,39 @@ def test_gemm_bound_and_phase_3_shapes():
     assert all(d // h in (32, 64, 128) for d, h in cs.K1_WIDTHS)
 
 
+def test_linear_bound_and_phase_3_linear_shapes():
+    """The bf16 linear's bound at the train cell's shapes: fc1 at 50240
+    rows does three products of 59.3 GFLOP (0.180 ms at 989 TFLOP/s)
+    against 0.573 GB (0.171 ms at 3.35 TB/s), so operations bind; the
+    patch embedding, without dx, moves 116 MB for two products, so bytes
+    bind; the f32-bias form alone counts its bias at 4
+    bytes.  Phase 3 times every ViT linear, the patch embedding (no dx) and
+    the decoder's K/V, query and FFN products at the cell's rows, each a
+    shape the tensor-core rule takes."""
+    import chip_smoke as cs
+    from sod_tpu_torch.ops import gemm as G
+
+    b = cs.linear_bound(50240, 1536, 384)
+    assert b["bound_by"] == "operations"
+    assert abs(b["bound_ms"] - 6 * 50240 * 1536 * 384 / 989e12 * 1e3) <= 1e-12
+    n_bytes = 6 * 50240 * 384 + 6 * 50240 * 1536 + 8 * 1536 * 384 + 8 * 1536
+    assert n_bytes / 3.35e12 * 1e3 < b["bound_ms"]
+    m, n, k = 50176, 384, 192                      # the patch embedding: 116 MB
+    no_dx = cs.linear_bound(m, n, k, dx=False)
+    assert no_dx["bound_by"] == "bytes"
+    n_bytes = 4 * m * k + 4 * m * n + 2 * n * k + 4 * n * k + 8 * n
+    assert abs(no_dx["bound_ms"] - n_bytes / 3.35e12 * 1e3) <= 1e-12
+    assert cs.linear_bound(m, n, k)["bound_ms"] > no_dx["bound_ms"]
+    f32 = cs.gemm_bound(64, 64, 64, "f32bias_bf16", False, 2, 0)["bound_ms"]
+    bf = cs.gemm_bound(64, 64, 64, "bias_bf16", False, 2, 0)["bound_ms"]
+    assert abs((f32 - bf) - 2 * 64 / 3.35e12 * 1e3) <= 1e-15
+    assert [s[0] for s in cs.LINEAR_SHAPES] == ["qkv", "proj", "fc1", "fc2", "patch",
+                                                "dec_kv", "dec_q", "dec_fc1", "dec_fc2"]
+    assert all(G.tc_shape(m, n, k) for _, m, n, k, _ in cs.LINEAR_SHAPES)
+    assert {m for _, m, _, _, _ in cs.LINEAR_SHAPES} == {64 * 785, 64 * 784, 64 * 20}
+    assert [s[0] for s in cs.LINEAR_SHAPES if not s[4]] == ["patch"]
+
+
 def test_s8_form_bound_and_phase_14_products():
     """K8's four s8 products at B=8 (7168 rows, d 384, hidden 1536) are bound
     by their bytes at the H100's 3.35 TB/s: QKV 22.5 MB against 6.34 GOP
