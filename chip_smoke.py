@@ -32,7 +32,10 @@ Phases, each printed as it passes; any failure exits non-zero:
    TFLOP/s, ``torch.matmul`` and the bound.  Then ``ops/layers.py``'s bf16
    linear at the ViT-S/8 train cell's shapes (B=64: QKV, proj, fc1, fc2 on
    50240 rows; the patch embedding, whose input needs no gradient, and the
-   decoder's K/V on 50176; the decoder's query projection and FFN on 1280):
+   decoder's K/V on 50176; the decoder's query projection and FFN on 1280),
+   then at the DINOv2 ViT-g/14-reg train cell's (B=8: qkv, proj, w12, w3 on
+   10992 rows, the adapter and the decoder's K/V on 10952, its query
+   projection on 160: row counts no multiple of 64):
    the f32-bias form of ``gemm_kernel`` alone against its plain version,
    and ``linear_tc`` forward and backward against ``linear_f32``, the f32
    products (y, dx, dW within one bf16 ulp, db within 1e-5 relative),
@@ -43,8 +46,8 @@ Phases, each printed as it passes; any failure exits non-zero:
    shipped config (ViT-S/8 at 224 px, 6 decoder layers, 20 queries, bf16)
    with seeded random weights: ``model_step`` on 4 images and one B=8
    forward, the kernel's launch count (12 per forward), the ``linear_tc``
-   calls (none at one image's 784 patch rows; the patch embedding and the
-   decoder's 12 K and V projections in the B=8 forward), agreement with the same forward
+   calls (61 a forward at any batch: the patch embedding and the decoder's
+   60; none left on the f32 products), agreement with the same forward
    through the plain version, B=1 latency and B=8 img/s;
 5. requests: three ``/predict`` requests through the web app with the
    port's service, masks decoded at the input size;
@@ -298,6 +301,8 @@ K2_BWD = dict(K2, name="flash_attention_backward",
               replaces="sod_tpu/ops/flash_attention.py:145")
 K2_FWD_EVAL = dict(K2, name="flash_attention_forward_masked_eval_shape",
                    replaces="sod_tpu/ops/flash_attention.py:70")
+K2_FWD_VITG = dict(K2_FWD, name="flash_attention_forward_vitg14reg_shape")
+K2_BWD_VITG = dict(K2_BWD, name="flash_attention_backward_vitg14reg_shape")
 # kernel vs plain version (bf16 output, unit-scale activations): two bf16
 # ulps at |x| < 8 (H100 run: max_abs 0.0156, corr 0.99999995)
 KERNEL_MAX_ABS, KERNEL_MIN_CORR = 0.0625, 0.99999
@@ -846,16 +851,23 @@ def gemm_bwd_check():
 # ops/layers.py linear at the shapes of the vits8-train-b64 cell (B=64, 785
 # tokens: 50240 rows; 784 patches an image: 50176 rows, the patch embedding
 # and the decoder's K and V; 20 queries an image: 1280 rows, the decoder's
-# query and output projections and its FFN): (name, rows, N, K, x needs a
-# gradient; the patch embedding's image does not).  Bf16 linears with a bias
-# whose shapes gemm_kernel takes run ops/gemm.py linear_tc: the
-# "f32bias_bf16" form forward, gemm_nn (only where x needs a gradient) and
-# gemm_tn backward.
+# query and output projections and its FFN), then of the vitg14reg-train-b8
+# cell (B=8, 1374 tokens: 10992 rows, 48 past a multiple of 64, through
+# DINOv2 ViT-g's qkv, proj, SwiGLU w12 and w3; 1369 patches an image: 10952
+# rows, 8 past, the adapter and the decoder's K and V; 160 query rows):
+# (name, rows, N, K, x needs a gradient; the patch embedding's image does
+# not).  Bf16 linears with a bias whose shapes gemm_kernel takes run
+# ops/gemm.py linear_tc: the "f32bias_bf16" form forward, gemm_nn (only
+# where x needs a gradient) and gemm_tn backward.
 LINEAR_SHAPES = (("qkv", 50240, 1152, 384, True), ("proj", 50240, 384, 384, True),
                  ("fc1", 50240, 1536, 384, True), ("fc2", 50240, 384, 1536, True),
                  ("patch", 50176, 384, 192, False), ("dec_kv", 50176, 384, 384, True),
                  ("dec_q", 1280, 384, 384, True), ("dec_fc1", 1280, 1536, 384, True),
-                 ("dec_fc2", 1280, 384, 1536, True))
+                 ("dec_fc2", 1280, 384, 1536, True),
+                 ("g_qkv", 10992, 4608, 1536, True), ("g_proj", 10992, 1536, 1536, True),
+                 ("g_w12", 10992, 8192, 1536, True), ("g_w3", 10992, 1536, 4096, True),
+                 ("g_adapter", 10952, 384, 1536, True), ("g_dec_kv", 10952, 384, 384, True),
+                 ("g_dec_q", 160, 384, 384, True))
 LINEAR = {"route": "cuda", "source": "sod_tpu_torch/csrc/vit_block.cuh",
           "replaces": "sod_tpu/ops/layers.py:98"}
 # host us a linear: LINEAR_HOST_CALLS linears on their own inputs and weights,
@@ -1028,7 +1040,7 @@ def linear_check():
         torch.cuda.empty_cache()
     phase(3, f"the bf16 linear (linear_tc: the f32-bias form, gemm_nn, gemm_tn) matches its "
              f"plain version and the f32 products at {len(LINEAR_SHAPES)} shapes of the train "
-             f"cell")
+             f"cells")
     return report
 
 
@@ -1133,13 +1145,14 @@ def main_path():
     if launches != depth * n_forwards:
         raise AssertionError(f"expected {depth} launches per forward, got "
                              f"{launches} for {n_forwards} forwards")
-    # the patch embedding and the decoder's K and V projections of memory:
-    # 8 x 784 patch rows take linear_tc (one f32-bias launch each), one
-    # image's 784 rows do not
-    tc = 1 + 2 * svc.mcfg.n_decoder_layers
-    if step_linears[:2] != (0, 0) or b8_linears[:2] != (tc, tc):
-        raise AssertionError(f"expected no linear_tc call in model_step and {tc} (the patch "
-                             f"embedding, the decoder's K and V) in the B=8 forward, got "
+    # every bf16 linear outside the fused blocks takes linear_tc at any row
+    # count (one f32-bias launch each): the patch embedding, and per decoder
+    # layer the four projections of each attention and the FFN's two; the
+    # objectness MLP runs in f32
+    tc = 1 + 10 * svc.mcfg.n_decoder_layers
+    if step_linears != (tc * len(imgs),) * 2 + (0,) or b8_linears != (tc, tc, 0):
+        raise AssertionError(f"expected {tc} linear_tc calls a forward and none left on the "
+                             f"f32 products, in model_step and in the B=8 forward, got "
                              f"{step_linears} and {b8_linears}")
 
     mask1 = np.stack([m for m, _ in steps]).astype(np.float32) / 255.0
@@ -1286,10 +1299,16 @@ K2_TRAIN_SHAPE = (8, 6, 785, 64)         # the default train step's attention
 # default evaluation: B=16 on a 400 px canvas, 50 x 50 patches + CLS, each
 # image's own grid valid (a key mask per image, first key valid)
 K2_EVAL_SHAPE = (16, 6, 2501, 64)
+# the vitg14reg-train-b8 cell's attention: DINOv2 ViT-g/14-reg at B=8, 518
+# px (1 + 4 registers + 37 x 37 patches), 24 heads of 64
+K2_VITG_SHAPE = (8, 24, 1374, 64)
 # phase 6's (B, H, N), each at every head dim: one key, around the 64-row
-# tile edge, two tiles and a bit, the train shape, the eval shape
+# tile edge, two tiles and a bit, the train shape, the eval shape; then the
+# ViT-g shape at its own head dim: phase 6's (B, H, N, d)
 K2_SHAPES = tuple((2, 3, n) for n in (1, 63, 64, 65, 129)) + (
     K2_TRAIN_SHAPE[:3], K2_EVAL_SHAPE[:3])
+K2_CASES = tuple((b, h, n, d) for b, h, n in K2_SHAPES for d in K2_HEAD_DIMS) + (
+    K2_VITG_SHAPE,)
 
 
 def k2_bound(b: int, h: int, n: int, d: int, valid_keys=None) -> dict:
@@ -1328,8 +1347,9 @@ def _canvas_mask(rng, b: int, n: int):
 
 def k2_check():
     """Phase 6: returns the worst forward and backward max_abs, the times
-    {name: (kernel ms, plain ms)} at the train shape and, under "eval", the
-    masked forward's at the eval shape with its bound on the valid keys."""
+    {name: (kernel ms, plain ms)} at the train shape, under "vitg" the same
+    at the ViT-g shape and, under "eval", the masked forward's at the eval
+    shape with its bound on the valid keys."""
     import torch
     import torch.nn.functional as F
 
@@ -1351,45 +1371,53 @@ def k2_check():
             raise AssertionError(f"K2 disagrees with its plain version ({name})")
         worst[kind] = max(worst[kind], max_abs)
 
-    for b, h, n in K2_SHAPES:
-        for d in K2_HEAD_DIMS:
-            q, k, v, do, mask = _k2_inputs(rng, (b, h, n, d))
-            if (b, h, n) == K2_EVAL_SHAPE[:3]:
-                mask = torch.from_numpy(_canvas_mask(rng, b, n)).cuda()
-            scale = d ** -0.5
-            tag = f"B{b} H{h} N{n} d{d}"
-            runs = []
-            for _ in range(2):
-                o, m, l = fa.flash_forward_cuda(q, k, v, scale)
-                om, _, _ = fa.flash_forward_cuda(q, k, v, scale, mask)
-                runs.append((o, m, l, om, *fa.flash_backward_cuda(q, k, v, do, m, l, scale)))
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(*runs)):
-                raise AssertionError(f"K2 {tag}: two runs on the same inputs differ")
-            o, _, _, om, *grads = runs[0]
-            check(f"{tag} forward", "fwd", o, fa.flash_forward_reference(q, k, v, scale))
-            check(f"{tag} forward masked", "fwd", om,
-                  fa.flash_forward_reference(q, k, v, scale, mask))
-            ref = fa.flash_backward_reference(q, k, v, do, scale)
-            for gname, got, want in zip(("dq", "dk", "dv"), grads, ref):
-                check(f"{tag} backward {gname}", "bwd", got, want)
-            del runs, o, om, grads, ref, q, k, v, do
+    for b, h, n, d in K2_CASES:
+        q, k, v, do, mask = _k2_inputs(rng, (b, h, n, d))
+        if (b, h, n) == K2_EVAL_SHAPE[:3]:
+            mask = torch.from_numpy(_canvas_mask(rng, b, n)).cuda()
+        scale = d ** -0.5
+        tag = f"B{b} H{h} N{n} d{d}"
+        runs = []
+        for _ in range(2):
+            o, m, l = fa.flash_forward_cuda(q, k, v, scale)
+            om, _, _ = fa.flash_forward_cuda(q, k, v, scale, mask)
+            runs.append((o, m, l, om, *fa.flash_backward_cuda(q, k, v, do, m, l, scale)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"K2 {tag}: two runs on the same inputs differ")
+        o, _, _, om, *grads = runs[0]
+        check(f"{tag} forward", "fwd", o, fa.flash_forward_reference(q, k, v, scale))
+        check(f"{tag} forward masked", "fwd", om,
+              fa.flash_forward_reference(q, k, v, scale, mask))
+        ref = fa.flash_backward_reference(q, k, v, do, scale)
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, ref):
+            check(f"{tag} backward {gname}", "bwd", got, want)
+        del runs, o, om, grads, ref, q, k, v, do
     print(f"  forward, masked forward and backward ran twice at each of "
-          f"{len(K2_SHAPES) * len(K2_HEAD_DIMS)} shapes: equal bits", flush=True)
+          f"{len(K2_CASES)} shapes: equal bits", flush=True)
 
-    q, k, v, do, _ = _k2_inputs(rng, K2_TRAIN_SHAPE)
-    _, m, l = fa.flash_forward_cuda(q, k, v, 0.125)
-    pairs = {"fwd": (lambda: fa.flash_forward_cuda(q, k, v, 0.125),
-                     lambda: fa.flash_forward_reference(q, k, v, 0.125)),
-             "bwd": (lambda: fa.flash_backward_cuda(q, k, v, do, m, l, 0.125),
-                     lambda: fa.flash_backward_reference(q, k, v, do, 0.125))}
-    timings = {}
-    for name, (kern, plain) in pairs.items():
-        # in turns on one card: plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
-        timings[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"  {name} at B=8 H=6 N=785 d=64: kernel {timings[name][0]:.4f} ms, "
-              f"plain {timings[name][1]:.4f} ms per call", flush=True)
+    def timed(shape, times):
+        """Forward and backward at ``shape`` (d 64), kernel and plain in turns."""
+        q, k, v, do, _ = _k2_inputs(rng, shape)
+        _, m, l = fa.flash_forward_cuda(q, k, v, 0.125)
+        pairs = {"fwd": (lambda: fa.flash_forward_cuda(q, k, v, 0.125),
+                         lambda: fa.flash_forward_reference(q, k, v, 0.125)),
+                 "bwd": (lambda: fa.flash_backward_cuda(q, k, v, do, m, l, 0.125),
+                         lambda: fa.flash_backward_reference(q, k, v, do, 0.125))}
+        bounds = k2_bound(*shape)
+        for name, (kern, plain) in pairs.items():
+            # in turns on one card: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (cuda_ms(f, 20) for f in (plain, kern, kern, plain))
+            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            print(f"  {name} at B={shape[0]} H={shape[1]} N={shape[2]} d={shape[3]}: kernel "
+                  f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms per call, bound "
+                  f"{bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']}",
+                  flush=True)
+        return q, k, v, do
+
+    timings = {"vitg": {}}
+    timed(K2_VITG_SHAPE, timings["vitg"])
+    q, k, v, do = timed(K2_TRAIN_SHAPE, timings)
 
     # the library's call for the same function, as a yardstick only: nothing
     # in the port calls it
@@ -1404,7 +1432,7 @@ def k2_check():
     print(f"  F.scaled_dot_product_attention on the same tensors (yardstick): forward "
           f"{timings['fwd_lib']:.4f} ms, its autograd backward {timings['bwd_lib']:.4f} ms "
           f"(max_abs {lib_abs:.6g} to the plain forward)", flush=True)
-    del q, k, v, do, m, l, ql, kl, vl, out_l
+    del q, k, v, do, ql, kl, vl, out_l
 
     # the masked forward at the eval shape, as default evaluation calls it
     b, h, n, d = K2_EVAL_SHAPE
@@ -1427,9 +1455,83 @@ def k2_check():
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
     phase(6, f"K2 forward (unmasked, masked) and backward match their plain versions at "
              f"N in {sorted({n for _, _, n in K2_SHAPES})} and head dims "
-             f"{list(K2_HEAD_DIMS)} (max_abs <= {K2_MAX_ABS}, rel_l2 <= {K2_MAX_REL_L2}, "
-             f"corr > {K2_MIN_CORR}); two runs give equal bits")
+             f"{list(K2_HEAD_DIMS)}, and at B={K2_VITG_SHAPE[0]} H={K2_VITG_SHAPE[1]} "
+             f"N={K2_VITG_SHAPE[2]} d={K2_VITG_SHAPE[3]} (max_abs <= {K2_MAX_ABS}, rel_l2 <= "
+             f"{K2_MAX_REL_L2}, corr > {K2_MIN_CORR}); two runs give equal bits")
     return worst, timings
+
+
+# ---------------------------------------------------------------- phase 25
+# The vitg14reg-train-b8 cell's model: SelfMask nq20 on DINOv2's ViT-g/14
+# with registers (40 blocks, d 1536, 24 heads) at B=8 and 518 px, one step of
+# make_train_step from random weights.  A step runs every block's qkv, proj,
+# w12 and w3, the adapter and each decoder layer's ten linears through
+# linear_tc; the patch embedding (K 588) alone stays on the f32 products
+VITG_SIZE = 518
+
+
+def vitg_train_check():
+    """Phase 25: one training step of the vitg14reg-train-b8 cell's model.
+    Returns {"tc": linear_tc calls, "f32": bf16 linears left on the f32
+    products, "K2 fwd", "K2 bwd": launches, "ms": a step, "peak_gb"}."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.config import load_config
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.models.vit import DINOV2_ARCH
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.ops import gemm as G
+    from sod_tpu_torch.ops import layers as L
+    from sod_tpu_torch.train.optim import build_optimizer
+    from sod_tpu_torch.train.step import make_train_step
+
+    _release()
+    live = load_config(CONFIG)
+    cfg = dataclasses.replace(live, arch=DINOV2_ARCH, patch_size=14,
+                              train_image_size=VITG_SIZE, eval_image_size=VITG_SIZE)
+    mcfg = config_from(cfg)
+    depth, n_dec = mcfg.vit.depth, mcfg.n_decoder_layers
+    with torch.device("meta"):
+        model = MaskFormer(mcfg)
+    model = model.to_empty(device="cuda")
+    model.load_state_dict(random_state_dict(model, cfg.seed))
+    opt = build_optimizer(cfg, model.parameters(), n_iters_per_epoch=100)
+    step = make_train_step(cfg, model, opt)
+    batch = _to_cuda(synthetic_batch(np.random.default_rng(25), cfg.batch_size, VITG_SIZE,
+                                     cfg.max_gt_masks))
+    watch = ("encoder.blocks.0.attn.qkv.weight", f"encoder.blocks.{depth - 1}.mlp.w3.weight",
+             "encoder.register_tokens", "linear_layer.weight", "query_embed")
+    params = dict(model.named_parameters())
+    before = {k: params[k].detach().clone() for k in watch}
+    torch.cuda.reset_peak_memory_stats()
+    L.tc_linears = L.f32_linears = G.launches = 0
+    fa.fwd_launches = fa.bwd_launches = 0
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    got = {"tc": L.tc_linears, "f32": L.f32_linears, "f32bias": G.launches,
+           "K2 fwd": fa.fwd_launches, "K2 bwd": fa.bwd_launches}
+    moved = [k for k in watch if not torch.equal(params[k], before[k])]
+    ms = _timed_steps(step, batch, 3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # four linears a block, the adapter, ten a decoder layer
+    tc = 4 * depth + 1 + 10 * n_dec
+    print(f"  B={cfg.batch_size} at {VITG_SIZE} px ({depth} blocks, {mcfg.vit.n_registers} "
+          f"registers): loss {loss:.6g}; linear_tc calls {got['tc']} (f32-bias launches "
+          f"{got['f32bias']}), left on f32 {got['f32']}; K2 {got['K2 fwd']}+{got['K2 bwd']}; "
+          f"{len(moved)} of {len(watch)} watched tensors moved; {ms:.1f} ms a step, peak "
+          f"{peak:.2f} GB [{CARD}]", flush=True)
+    del model, opt, step, batch, params, before
+    _release()
+    if got != {"tc": tc, "f32": 1, "f32bias": tc, "K2 fwd": depth, "K2 bwd": depth}:
+        raise AssertionError(f"expected {tc} linear_tc calls, the patch embedding alone on "
+                             f"the f32 products and {depth} K2 launches each way, got {got}")
+    if not (np.isfinite(loss) and len(moved) == len(watch)):
+        raise AssertionError(f"the ViT-g step gave loss {loss} and moved only {moved}")
+    phase(25, f"vitg14reg-train-b8's step: {tc} linear_tc calls, 1 left on f32, "
+              f"{depth}+{depth} K2 launches, {ms:.1f} ms a step, peak {peak:.2f} GB")
+    return dict(got, ms=ms, peak_gb=peak)
 
 
 class _PlainFlash:
@@ -5135,6 +5237,7 @@ def main():
     finally:
         svc.close()
     k2_worst, k2_times = k2_check()
+    vitg = vitg_train_check()
     train_step_check()
     k2_launches = trainer_check()
     ev = eval_kernels_check()
@@ -5156,6 +5259,7 @@ def main():
     k1_bound = roofline(c["qkv"] + 2 * c["scores"] + c["proj"] + 2 * c["fc"],
                         2 * act + c["w_attn"] + c["w_mlp"])
     k2_bounds = k2_bound(*K2_TRAIN_SHAPE)
+    k2_vitg = k2_bound(*K2_VITG_SHAPE)
     k2_eval = k2_times["eval"]
 
     def entry(kernel, n_launches, err, ms, plain_ms, bound, library_ms=None, **extra):
@@ -5171,6 +5275,12 @@ def main():
                     entry_launches=dr["entry K2 fwd"]),
               entry(K2_BWD, k2_launches[1], k2_worst["bwd"], *k2_times["bwd"],
                     k2_bounds["bwd"], k2_times["bwd_lib"]),
+              # the same kernels at the vitg14reg-train-b8 cell's shape, launched in
+              # phase 25's step
+              entry(K2_FWD_VITG, vitg["K2 fwd"], k2_worst["fwd"], *k2_times["vitg"]["fwd"],
+                    k2_vitg["fwd"]),
+              entry(K2_BWD_VITG, vitg["K2 bwd"], k2_worst["bwd"], *k2_times["vitg"]["bwd"],
+                    k2_vitg["bwd"]),
               # the same kernel as default evaluation calls it (B=16, 2501 tokens, masked)
               entry(K2_FWD_EVAL, default_run["K2 fwd"], k2_worst["fwd"], k2_eval["ms"],
                     k2_eval["plain_ms"], k2_eval["bound"], k2_eval["library_ms"]),
@@ -5205,19 +5315,22 @@ def main():
                    name=name if name.startswith("ln_") else f"gemm_{name}")
         report.append(entry(src, n_launches, err, ms, plain_ms, bound, lib_ms,
                             launches_rule=rule, **extra))
-    # the bf16 linear at the train cell's shapes: the f32-bias form alone
+    # the bf16 linear at the train cells' shapes: the f32-bias form alone
     # and linear_tc forward and backward against linear_f32 (device time,
-    # from CUDA graphs).  The main path's count is phase 4's: the patch
-    # embedding and the decoder's K and V in the B=8 forward, one f32-bias
-    # launch each (none at model_step's 784 rows)
-    n_tc = main_linears["forward B=8"]
+    # from CUDA graphs).  The ViT-S shapes' count is phase 4's: the patch
+    # embedding and the decoder's linears in the B=8 forward; the ViT-g
+    # shapes' ("g_") phase 25's step; one f32-bias launch a call
     for name, (form, fn) in linears.items():
+        if name.startswith("g_"):
+            n_tc, calls = vitg["tc"], {"vitg14reg step": vitg["tc"]}
+            rule = "ops/layers.py tc_linears in phase 25's vitg14reg-train-b8 step"
+        else:
+            n_tc, calls = main_linears["forward B=8"], main_linears
+            rule = "ops/layers.py tc_linears"
         report.append(entry(dict(LINEAR, name=f"gemm_f32bias_{name}"), n_tc, *form,
-                            launches_rule="one per linear_tc call",
-                            main_path_calls=main_linears))
+                            launches_rule="one per linear_tc call", main_path_calls=calls))
         report.append(entry(dict(LINEAR, name=f"linear_tc_{name}"), n_tc, *fn[:5],
-                            launches_rule="ops/layers.py tc_linears",
-                            main_path_calls=main_linears, **fn[5]))
+                            launches_rule=rule, main_path_calls=calls, **fn[5]))
     # K8's s8 products alone at B=8 (device time, from CUDA graphs), launched
     # inside K8's chain: one of each per K8 launch
     for name, (err, ms, plain_ms, bound, lib_ms) in k8_forms.items():

@@ -58,11 +58,13 @@
 // The attention's products are attention.cuh's (wgmma on register-resident
 // score tiles).
 //
-// Shape contract (checked by the Python wrappers): rows M % 64 == 0,
-// N % 64 == 0, K % 32 == 0 (K <= 1024 with LayerNorm; TN: K % 64 == 0),
+// Shape contract (checked by the Python wrappers): N % 64 == 0, K % 32 == 0
+// (K <= 1024 with LayerNorm; TN: the output's rows and columns % 64 == 0),
 // attention rows per image % 64 == 0, head dim in {32, 64, 128}, 16-byte
-// aligned contiguous tensors.  gemm_kernel also takes M % 128 == 64 in its
-// 128-row tiles.
+// aligned contiguous tensors.  gemm_kernel takes any M > 0: TMA reads the
+// rows of a tile at or beyond M as zeros, no epilogue stores them, and TN's
+// last split of the contracted rows ends in zero rows that add nothing.  The
+// DGELU forms keep M % 64 == 0 (their column partials are per 64 rows).
 #pragma once
 
 #include <cudaTypedefs.h>   // CUtensorMap, PFN_cuTensorMapEncodeTiled

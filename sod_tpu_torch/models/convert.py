@@ -274,6 +274,24 @@ def convert_vit(sd: Mapping[str, Any], depth: int = 12, prefix: str = "") -> Dic
     return {k: sd[k] for k in keys}
 
 
+def convert_dinov2(sd: Mapping[str, Any], depth: int = 40, prefix: str = "") -> Dict[str, Any]:
+    """A DINOv2 hub state dict (``dinov2_vitg14_reg``'s layout, no block
+    chunks: ``blocks.{i}.ls1.gamma``, ``mlp.w12``, ``mlp.w3``,
+    ``register_tokens``) -> the keys of the port's DINOv2
+    ``VisionTransformer``, which are the hub's; ``mask_token`` (read only by
+    masked pretraining) is dropped; ``KeyError`` when one is missing."""
+    keys = ["cls_token", "pos_embed", "register_tokens", "patch_embed.proj.weight",
+            "patch_embed.proj.bias"]
+    for i in range(depth):
+        for m in ("norm1", "attn.qkv", "attn.proj", "ls1", "norm2", "mlp.w12", "mlp.w3", "ls2"):
+            names = ("gamma",) if m.startswith("ls") else ("weight", "bias")
+            keys += [f"blocks.{i}.{m}.{n}" for n in names]
+    keys += ["norm.weight", "norm.bias"]
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    _require(sd, keys, "DINOv2 state dict")
+    return {k: sd[k] for k in keys}
+
+
 def convert_resnet50(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """A MoCo-v2 / SwAV / torchvision ResNet-50 state dict -> the port's
     ``ResNet`` keys (``_strip_resnet_prefix``); ``KeyError`` when one is

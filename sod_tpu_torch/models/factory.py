@@ -17,8 +17,10 @@ def get_model(arch: str, patch_size: Optional[int] = None,
               training_method: Optional[str] = None, configs=None,
               checkpoint: Optional[str] = None, seed: int = 0):
     """Build (cfg, module, apply_fn) for ``arch``: "maskformer" (from the
-    flat experiment ``configs``), "vit_small" / "vit_tiny" / "vit_base",
-    "resnet50" or "deit_small_distilled"."""
+    flat experiment ``configs``, whose ``arch`` picks the encoder),
+    "vit_small" / "vit_tiny" / "vit_base", "dinov2_vitg14_reg" (a checkpoint
+    in the DINOv2 hub's layout, ``convert.convert_dinov2``), "resnet50" or
+    "deit_small_distilled"."""
     if arch == "maskformer":
         if configs is None:
             raise ValueError("arch='maskformer' needs configs")
@@ -57,6 +59,21 @@ def get_model(arch: str, patch_size: Optional[int] = None,
             if checkpoint else random_vit_state_dict(model, seed))
         return vcfg, model, vit_apply
 
+    if arch == "dinov2_vitg14_reg":
+        from sod_tpu_torch.models.vit import (
+            VisionTransformer,
+            dinov2_vitg14_reg,
+            random_vit_state_dict,
+            vit_apply,
+        )
+
+        vcfg = dinov2_vitg14_reg(patch_size=patch_size or 14)
+        model = VisionTransformer(vcfg)
+        model.load_state_dict(
+            convert.convert_dinov2(convert.load_torch_state_dict(checkpoint), depth=vcfg.depth)
+            if checkpoint else random_vit_state_dict(model, seed))
+        return vcfg, model, vit_apply
+
     if arch == "deit_small_distilled":
         from sod_tpu_torch.models.deit import (
             deit_apply,
@@ -80,5 +97,5 @@ def get_model(arch: str, patch_size: Optional[int] = None,
 
     raise ValueError(
         f"{arch} is not a supported arch. Choose from "
-        "[maskformer, vit_small, vit_tiny, vit_base, resnet50, "
+        "[maskformer, vit_small, vit_tiny, vit_base, dinov2_vitg14_reg, resnet50, "
         "deit_small_distilled]")

@@ -3,6 +3,10 @@
 ResNet-50 with a linear adapter over its res5 channels), the DETR
 post-norm decoder, the bilinear pixel decoder, and the binary objectness
 head (or, with ``use_binary_classifier=False``, the mask-embedding MLP).
+``arch="dinov2_vitg14_reg"`` (the port's own; ``sod_tpu`` has no such
+encoder) runs DINOv2's ViT-g/14 with registers (``models/vit.py``), drops
+its CLS and register tokens, and feeds the patch tokens through the same
+linear adapter (1536 -> 384) to the decoder at its published width.
 
 Parameter names are the reference's ``selfmask_nq20.pt`` keys
 (``encoder.*``, ``decoder.layers.{i}.*``, ``decoder.norm.*``,
@@ -29,11 +33,14 @@ from torch import nn
 
 from sod_tpu_torch.models.resnet import (RESNET50_OUT_CHANNELS, ResNet, resnet50_apply,
                                          resnet_state_init)
-from sod_tpu_torch.models.vit import ViTConfig, VisionTransformer, vit_apply, vit_init, vit_small
+from sod_tpu_torch.models.vit import (DINOV2_ARCH, ViTConfig, VisionTransformer,
+                                      dinov2_vitg14_reg, random_vit_state_dict, vit_apply,
+                                      vit_init, vit_small)
 from sod_tpu_torch.ops.attention import MultiheadAttention, mha_init
 from sod_tpu_torch.ops.layers import (LayerNorm, Linear, layer_norm_init, linear_init, mlp_apply,
                                       mlp_init)
 from sod_tpu_torch.ops.resize import interpolate_bilinear
+from sod_tpu_torch.utils.profiling import span
 
 DECODER_LN_EPS = 1e-5                   # torch nn.LayerNorm's default
 
@@ -43,7 +50,7 @@ class MaskFormerConfig:
     n_queries: int = 20
     n_decoder_layers: int = 6
     scale_factor: int = 2
-    arch: str = "vit_small"               # "vit_small" | "resnet50"
+    arch: str = "vit_small"               # "vit_small" | "resnet50" | "dinov2_vitg14_reg"
     use_binary_classifier: bool = True
     learnable_pixel_decoder: bool = False  # read by no forward, as in sod_tpu
     lateral_connection: bool = False       # read by no forward, as in sod_tpu
@@ -58,6 +65,18 @@ class MaskFormerConfig:
     @property
     def n_heads(self) -> int:
         return 6 if self.arch != "vit_small" else self.vit.n_heads
+
+    @property
+    def vit_encoder(self) -> bool:
+        return self.arch in ("vit_small", DINOV2_ARCH)
+
+    @property
+    def adapter_in(self) -> Optional[int]:
+        """The channels ``linear_layer`` takes to the decoder's width: res5's,
+        or the DINOv2 ViT's; None (no adapter) for ViT-S."""
+        if self.arch == "vit_small":
+            return None
+        return self.vit.embed_dim if self.arch == DINOV2_ARCH else RESNET50_OUT_CHANNELS
 
 
 def config_from(cfg) -> MaskFormerConfig:
@@ -78,21 +97,35 @@ def config_from(cfg) -> MaskFormerConfig:
     the Evaluator, ``quantize`` by the inference service,
     ``grad_accum_mode`` by the train step, ``async_checkpoint`` by the
     Trainer and ``use_copy_paste`` by the dataset (as in ``sod_tpu``), not
-    by the model."""
+    by the model.  ``arch="dinov2_vitg14_reg"`` takes ``patch_size`` 14; its
+    SwiGLU blocks have no fused kernel and no int8 path, so every fused flag
+    and ``quantize: int8`` raise ``ValueError`` here."""
+    arch = getattr(cfg, "arch", "vit_small")
+    flash = getattr(cfg, "use_pallas_attention", True)
+    remat = getattr(cfg, "remat", False)
+    if arch == DINOV2_ARCH:
+        refused = [f for f in ("use_fused_mlp", "use_fused_train", "fused_save_acts",
+                               "use_fused_eval") if getattr(cfg, f, False)]
+        if getattr(cfg, "quantize", "none") == "int8":
+            refused.append("quantize: int8")
+        if refused:
+            raise ValueError(f"arch {arch!r} has no fused or int8 path (its blocks are "
+                             f"SwiGLU); refused: {', '.join(refused)}")
+        vit = dinov2_vitg14_reg(patch_size=cfg.patch_size, use_flash=flash, remat=remat)
+    else:
+        vit = vit_small(patch_size=cfg.patch_size, use_flash=flash, remat=remat,
+                        fused_mlp=getattr(cfg, "use_fused_mlp", False),
+                        fused_train=getattr(cfg, "use_fused_train", False),
+                        fused_save_acts=getattr(cfg, "fused_save_acts", False))
     return MaskFormerConfig(
         n_queries=cfg.n_queries, n_decoder_layers=cfg.n_decoder_layers,
         scale_factor=cfg.scale_factor,
-        arch=getattr(cfg, "arch", "vit_small"),
+        arch=arch,
         use_binary_classifier=getattr(cfg, "use_binary_classifier", True),
         learnable_pixel_decoder=getattr(cfg, "learnable_pixel_decoder", False),
         lateral_connection=getattr(cfg, "lateral_connection", False),
         return_intermediate=getattr(cfg, "loss_every_decoder_layer", True),
-        vit=vit_small(patch_size=cfg.patch_size,
-                      use_flash=getattr(cfg, "use_pallas_attention", True),
-                      remat=getattr(cfg, "remat", False),
-                      fused_mlp=getattr(cfg, "use_fused_mlp", False),
-                      fused_train=getattr(cfg, "use_fused_train", False),
-                      fused_save_acts=getattr(cfg, "fused_save_acts", False)))
+        vit=vit)
 
 
 class DecoderLayer(nn.Module):
@@ -176,7 +209,7 @@ class MaskFormer(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
-        if cfg.arch == "vit_small":
+        if cfg.vit_encoder:
             self.encoder = VisionTransformer(cfg.vit)
         elif cfg.arch == "resnet50":
             self.encoder = ResNet("resnet50", seed=None)
@@ -192,9 +225,10 @@ class MaskFormer(nn.Module):
             self.ffn = MLP([d, d, d, d])
             self.linear_classifier = Linear(d, 2)
             self.norm = LayerNorm(d, DECODER_LN_EPS)
-        if cfg.arch != "vit_small":
-            # the 1x1 channel adapter over res5, a linear on the channel axis
-            self.linear_layer = Linear(RESNET50_OUT_CHANNELS, d)
+        if cfg.adapter_in is not None:
+            # the channel adapter (upstream's 1x1 over res5): a linear on the
+            # channel axis of res5 or of the DINOv2 patch tokens
+            self.linear_layer = Linear(cfg.adapter_in, d)
 
     def forward(self, x: torch.Tensor, fused: bool = False,
                 encoder_apply: Optional[Callable] = None,
@@ -203,7 +237,8 @@ class MaskFormer(nn.Module):
                 layer_apply: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """:param x: [B, H, W, 3] normalized images.
         :param fused: run the ViT encoder's blocks through the fused kernel
-            (the ResNet ignores it, as in ``sod_tpu``).
+            (the ResNet ignores it, as in ``sod_tpu``; the DINOv2 ViT
+            raises).
         :param encoder_apply: optional ``(encoder, x) -> [B, 1+N, D]``
             normed last-layer tokens used in place of the ViT encoder; must
             be the same math as ``vit_apply`` (the model-sharding layouts'
@@ -217,16 +252,20 @@ class MaskFormer(nn.Module):
             head only), ``features`` [B, D].  With ``encoder_only``:
             ``patch_tokens`` [B, gh, gw, D] (``sod_tpu``'s)."""
         stats: Dict = {}
-        if self.cfg.arch == "vit_small":
+        if self.cfg.vit_encoder:
             p = self.cfg.vit.patch_size
             grid = (-(-x.shape[1] // p), -(-x.shape[2] // p))
-            if encoder_apply is not None:
-                tokens = encoder_apply(self.encoder, x)
-            else:
-                tokens = vit_apply(self.encoder, x, fused=fused)
-            memory = tokens[:, 1:]
+            with span("encoder"):
+                if encoder_apply is not None:
+                    tokens = encoder_apply(self.encoder, x)
+                else:
+                    tokens = vit_apply(self.encoder, x, fused=fused)
+            memory = tokens[:, 1 + self.cfg.vit.n_registers:]        # CLS, registers out
+            if self.cfg.adapter_in is not None:
+                memory = self.linear_layer(memory.contiguous())
         else:
-            feats = resnet50_apply(self.encoder, x, train=train, stats=stats)["res5"]
+            with span("encoder"):
+                feats = resnet50_apply(self.encoder, x, train=train, stats=stats)["res5"]
             feats = self.linear_layer(feats)                           # [B, h, w, D]
             b, h, w, d = feats.shape
             memory, grid = feats.reshape(b, h * w, d), (h, w)
@@ -341,13 +380,17 @@ def random_state_dict(model: MaskFormer, seed: int) -> Dict[str, torch.Tensor]:
     the decoder / head linears torch-default U(+-1/sqrt(fan_in)), in_proj
     xavier-uniform, out_proj U(+-1/sqrt(d)), queries N(0, 1); a ResNet
     encoder's convolutions He-normal N(0, sqrt(2 / (k * k * cout))) and its
-    BatchNorms at the identity.  The ViT live config's draws are the same as
-    before the ResNet and non-bc keys existed."""
+    BatchNorms at the identity; a DINOv2 encoder's tensors as
+    ``random_vit_state_dict`` draws them.  The ViT live config's draws are
+    the same as before the ResNet, non-bc and DINOv2 keys existed."""
     rng = np.random.default_rng(seed)
     sd = model.state_dict()
     resnet = isinstance(model.encoder, ResNet)
-    out = {}
+    enc = random_vit_state_dict(model.encoder, seed) if model.cfg.arch == DINOV2_ARCH else {}
+    out = {f"encoder.{k}": v for k, v in enc.items()}
     for name, p in sd.items():
+        if name in out:
+            continue
         shape = tuple(p.shape)
         parts = name.split(".")
         fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else None
@@ -384,7 +427,7 @@ def random_state_dict(model: MaskFormer, seed: int) -> Dict[str, torch.Tensor]:
             bound = 1 / math.sqrt(fan_in)
             a = rng.uniform(-bound, bound, shape)
         out[name] = torch.from_numpy(np.asarray(a, np.float32))
-    return out
+    return {name: out[name] for name in sd}
 
 
 def maskformer_init(gen: torch.Generator, cfg: MaskFormerConfig) -> Dict[str, torch.Tensor]:
@@ -397,7 +440,7 @@ def maskformer_init(gen: torch.Generator, cfg: MaskFormerConfig) -> Dict[str, to
     torch-default.  The same generator state gives the same tensors."""
     d = cfg.embed_dim
     model = MaskFormer(cfg)
-    if cfg.arch == "vit_small":
+    if cfg.vit_encoder:
         enc = vit_init(gen, cfg.vit)
     else:
         enc = resnet_state_init(model.encoder, gen)
@@ -422,8 +465,8 @@ def maskformer_init(gen: torch.Generator, cfg: MaskFormerConfig) -> Dict[str, to
     if not cfg.use_binary_classifier:
         put("linear_classifier", linear_init(gen, d, 2, init="torch_default"))
         put("norm", layer_norm_init(d))
-    if cfg.arch != "vit_small":
-        put("linear_layer", linear_init(gen, RESNET50_OUT_CHANNELS, d, init="torch_default"))
+    if cfg.adapter_in is not None:
+        put("linear_layer", linear_init(gen, cfg.adapter_in, d, init="torch_default"))
     # the model's key order, so that a state dict compares key by key
     return {k: out[k] for k in model.state_dict()}
 

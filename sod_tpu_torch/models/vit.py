@@ -6,6 +6,14 @@ Parameter names follow the reference's ``vision_transformer.py`` (DINO
 ``sod_tpu`` load alike.  Besides the forward (``vit_apply``): the
 attention-map and token helpers of the DINO toolkit (``vit_selfattention``,
 ``vit_get_tokens``, ``vit_n_last_*``), the DINO head, and ``vit_init``.
+
+``dinov2_vitg14_reg`` is DINOv2's ViT-g/14 with registers (Oquab et al.,
+arXiv:2304.07193; Darcet et al., arXiv:2309.16588; facebookresearch/dinov2
+``vit_giant2``), under the hub's parameter names: its blocks scale both
+residual branches by LayerScale gammas (``ls1.gamma``, ``ls2.gamma``) and
+run a SwiGLU FFN (``mlp.w12``, ``mlp.w3``); ``register_tokens`` sit between
+CLS and the patches and carry no position embedding; the position table is
+resized bicubic with antialiasing at other grids.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from sod_tpu_torch.ops.resize import interpolate_bicubic
 
 LN_EPS = 1e-6                     # the reference ViT's LayerNorm eps
 MLP_RATIO = 4
+DINOV2_ARCH = "dinov2_vitg14_reg"
+DINOV2_REGISTERS = 4
 
 
 @dataclass(frozen=True)
@@ -46,10 +56,24 @@ class ViTConfig:
     fused_train: bool = False     # training blocks through K3 then K4
     fused_save_acts: bool = False  # K3 keeps qkv, K4 the pre-GELU hidden
     remat: bool = False           # recompute each block in the backward
+    dinov2: bool = False          # DINOv2 blocks (LayerScale, SwiGLU), registers, antialiased
+                                  # pos resize
 
     @property
     def n_pos_tokens(self) -> int:
         return self.pos_grid * self.pos_grid + 1
+
+    @property
+    def n_registers(self) -> int:
+        """Register tokens between CLS and the patches (DINOv2 "reg")."""
+        return DINOV2_REGISTERS if self.dinov2 else 0
+
+    @property
+    def ffn_hidden(self) -> int:
+        """The FFN's hidden width: 4 d, or DINOv2's SwiGLU width
+        ``(int(4 d * 2 / 3) + 7) // 8 * 8`` (``SwiGLUFFNFused``)."""
+        hidden = MLP_RATIO * self.embed_dim
+        return (int(hidden * 2 / 3) + 7) // 8 * 8 if self.dinov2 else hidden
 
 
 def vit_small(patch_size: int = 8, use_flash: bool = False,
@@ -74,6 +98,17 @@ def vit_base(patch_size: int = 16, use_flash: bool = False) -> ViTConfig:
                      pos_grid=224 // patch_size, use_flash=use_flash)
 
 
+def dinov2_vitg14_reg(patch_size: int = 14, use_flash: bool = False,
+                      remat: bool = False) -> ViTConfig:
+    """DINOv2 ``dinov2_vitg14_reg``: d 1536, 24 heads of 64, 40 blocks,
+    SwiGLU hidden 4096, LayerScale, 4 registers, the 37 x 37 position grid
+    of 518 px.  Patch 14 only."""
+    if patch_size != 14:
+        raise ValueError(f"{DINOV2_ARCH} has patch 14, got patch_size={patch_size}")
+    return ViTConfig(patch_size=14, embed_dim=1536, depth=40, n_heads=24, pos_grid=37,
+                     use_flash=use_flash, remat=remat, dinov2=True)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -84,12 +119,42 @@ class Mlp(nn.Module):
         return mlp_apply([self.fc1, self.fc2], x, activation="gelu")
 
 
+class SwiGLUFFN(nn.Module):
+    """DINOv2's SwiGLU FFN: ``w3(silu(x1) * x2)`` with ``x1, x2 =
+    w12(x).chunk(2)``, both linears through ``linear``, the gate in the
+    tokens' dtype."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
+class LayerScale(nn.Module):
+    """DINOv2's per-channel scale of a residual branch, ``gamma`` f32,
+    rounded to the branch's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
 class Block(nn.Module):
     """Pre-norm encoder block; ``forward`` is the unfused path
     (``_block_apply``), its attention through K2 under ``cfg.use_flash``,
     False keys of ``key_mask`` [B, N] excluded; its MLP half is the erf-GELU
     ``Mlp``, or under ``cfg.fused_mlp`` the tanh-GELU kernel K4 with the
-    recompute backward (``sod_tpu/models/vit.py:238-241``)."""
+    recompute backward (``sod_tpu/models/vit.py:238-241``).  A DINOv2 block
+    (``cfg.dinov2``) is ``x + ls1(attn(norm1(x)))``, then ``x +
+    ls2(mlp(norm2(x)))`` with the ``SwiGLUFFN``, its modules in the hub's
+    order."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -97,22 +162,28 @@ class Block(nn.Module):
         self.fused_mlp = cfg.fused_mlp
         self.norm1 = LayerNorm(d, LN_EPS)
         self.attn = Attention(d, cfg.n_heads, use_flash=cfg.use_flash)
+        self.ls1 = LayerScale(d) if cfg.dinov2 else None
         self.norm2 = LayerNorm(d, LN_EPS)
-        self.mlp = Mlp(d, MLP_RATIO * d)
+        self.mlp = SwiGLUFFN(d, cfg.ffn_hidden) if cfg.dinov2 else Mlp(d, MLP_RATIO * d)
+        self.ls2 = LayerScale(d) if cfg.dinov2 else None
 
     def forward(self, x, key_mask=None, return_attn: bool = False):
         """:param return_attn: return ``(x, probs)``, the attention's f32
         probabilities [B, H, N, N] beside the output, with the plain
-        softmax and the erf-GELU MLP whatever ``cfg`` says
+        softmax and the block's own MLP whatever ``cfg`` says
         (``sod_tpu``'s ``_block_apply(return_attn=...)``)."""
         if return_attn:
             y, probs = self.attn(self.norm1(x), key_mask, return_attn=True)
-            x = x + y
-            return x + self.mlp(self.norm2(x)), probs
-        x = x + self.attn(self.norm1(x), key_mask)
+            x = x + _scaled(self.ls1, y)
+            return x + _scaled(self.ls2, self.mlp(self.norm2(x))), probs
+        x = x + _scaled(self.ls1, self.attn(self.norm1(x), key_mask))
         if self.fused_mlp:
             return fused_ln_mlp(x, self, eps=LN_EPS)
-        return x + self.mlp(self.norm2(x))
+        return x + _scaled(self.ls2, self.mlp(self.norm2(x)))
+
+
+def _scaled(ls: Optional[LayerScale], y: torch.Tensor) -> torch.Tensor:
+    return y if ls is None else ls(y)
 
 
 def fused_block_train(blk: Block, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
@@ -165,15 +236,21 @@ def patchify(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
-                             pos_grid: int) -> torch.Tensor:
-    """Bicubic-resize the (G*G+1)-token pos-embed to (gh*gw+1) tokens."""
+                             pos_grid: int, antialias: bool = False) -> torch.Tensor:
+    """Bicubic-resize the (G*G+1)-token pos-embed to (gh*gw+1) tokens; with
+    ``antialias`` as DINOv2 does (``interpolate_antialias=True``, no
+    ``interpolate_offset``: ``F.interpolate`` to the grid's size, in f32)."""
     gh, gw = grid_hw
     if gh == pos_grid and gw == pos_grid:
         return pos_embed
     cls_pe, patch_pe = pos_embed[:, :1], pos_embed[:, 1:]
     d = pos_embed.shape[-1]
     patch_pe = patch_pe.reshape(1, pos_grid, pos_grid, d).permute(0, 3, 1, 2)
-    patch_pe = interpolate_bicubic(patch_pe, gh, gw)
+    if antialias:
+        patch_pe = F.interpolate(patch_pe.float(), size=(gh, gw), mode="bicubic",
+                                 align_corners=False, antialias=True).to(pos_embed.dtype)
+    else:
+        patch_pe = interpolate_bicubic(patch_pe, gh, gw)
     patch_pe = patch_pe.permute(0, 2, 3, 1).reshape(1, gh * gw, d)
     return torch.cat([cls_pe, patch_pe], dim=1)
 
@@ -186,6 +263,8 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.n_pos_tokens, d))
+        if cfg.n_registers:
+            self.register_tokens = nn.Parameter(torch.empty(1, cfg.n_registers, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, LN_EPS)
 
@@ -193,7 +272,9 @@ class VisionTransformer(nn.Module):
 def prepare_tokens(vit: VisionTransformer, x: torch.Tensor,
                    pos_embed_override: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """Patchify + CLS + interpolated pos-embed: ([B, 1+N, D], grid).
+    """Patchify + CLS + interpolated pos-embed: ([B, 1+N, D], grid); then
+    the register tokens, if any, after CLS ([B, 1+R+N, D], DINOv2's
+    ``prepare_tokens_with_masks``).
 
     :param pos_embed_override: [B or 1, 1+N, D] positional embeddings used
         in place of the interpolated table (the canvas evaluator's
@@ -209,8 +290,12 @@ def prepare_tokens(vit: VisionTransformer, x: torch.Tensor,
     if pos_embed_override is not None:
         pe = pos_embed_override
     else:
-        pe = interpolate_pos_encoding(vit.pos_embed, (gh, gw), cfg.pos_grid)
-    return tokens + pe.to(tokens.dtype), (gh, gw)
+        pe = interpolate_pos_encoding(vit.pos_embed, (gh, gw), cfg.pos_grid, cfg.dinov2)
+    tokens = tokens + pe.to(tokens.dtype)
+    if cfg.n_registers:
+        regs = vit.register_tokens.to(tokens.dtype).expand(b, -1, d)
+        tokens = torch.cat([tokens[:, :1], regs, tokens[:, 1:]], dim=1)
+    return tokens, (gh, gw)
 
 
 def vit_apply(vit: VisionTransformer, x: torch.Tensor,
@@ -247,6 +332,9 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
     K4 under ``fused_mlp`` launch twice forward per backward.
     """
     cfg = vit.cfg
+    if fused and cfg.dinov2:
+        raise ValueError(f"{DINOV2_ARCH}: the fused inference kernels (K1, K4, K5, K8) run "
+                         f"GELU blocks; this arch's SwiGLU blocks have none")
     tokens, _ = prepare_tokens(vit, x, pos_embed_override)
     per_layer = []
     if fused and tokens.dtype == torch.bfloat16:
@@ -389,7 +477,9 @@ def vit_init(gen: torch.Generator, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
     ``vit_init`` distributions, drawn from ``gen``: the patch conv
     torch-default U(+-1/sqrt(3 p^2)) (weight and bias), CLS zeros, the
     pos-embed and every block linear ``trunc_normal`` with zero biases,
-    LayerNorms ones and zeros."""
+    LayerNorms ones and zeros.  A DINOv2 config takes DINOv2's
+    ``init_weights``: CLS and registers N(0, 1e-6), the SwiGLU linears
+    ``trunc_normal``, the LayerScale gammas the hub's ``init_values`` 1."""
     d, p = cfg.embed_dim, cfg.patch_size
     patch = linear_init(gen, p * p * 3, d, init="torch_default")
     out = {
@@ -397,15 +487,23 @@ def vit_init(gen: torch.Generator, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
         "patch_embed.proj.weight": patch["weight"].reshape(d, p, p, 3).permute(0, 3, 1, 2)
         .contiguous(),
         "patch_embed.proj.bias": patch["bias"],
-        "cls_token": torch.zeros(1, 1, d),
+        "cls_token": (torch.randn(1, 1, d, generator=gen) * 1e-6 if cfg.dinov2
+                      else torch.zeros(1, 1, d)),
         "pos_embed": trunc_normal(gen, (1, cfg.n_pos_tokens, d)),
     }
+    if cfg.n_registers:
+        out["register_tokens"] = torch.randn(1, cfg.n_registers, d, generator=gen) * 1e-6
     for i in range(cfg.depth):
         pre = f"blocks.{i}."
         lins = {"attn.qkv": linear_init(gen, d, 3 * d), "attn.proj": linear_init(gen, d, d)}
-        fc1, fc2 = mlp_init(gen, [d, MLP_RATIO * d, d])
-        lins.update({"mlp.fc1": fc1, "mlp.fc2": fc2,
-                     "norm1": layer_norm_init(d), "norm2": layer_norm_init(d)})
+        if cfg.dinov2:
+            h = cfg.ffn_hidden
+            lins.update({"mlp.w12": linear_init(gen, d, 2 * h), "mlp.w3": linear_init(gen, h, d),
+                         "ls1": {"gamma": torch.ones(d)}, "ls2": {"gamma": torch.ones(d)}})
+        else:
+            fc1, fc2 = mlp_init(gen, [d, MLP_RATIO * d, d])
+            lins.update({"mlp.fc1": fc1, "mlp.fc2": fc2})
+        lins.update({"norm1": layer_norm_init(d), "norm2": layer_norm_init(d)})
         for name, t in lins.items():
             out.update({f"{pre}{name}.{k}": v for k, v in t.items()})
     out.update({f"norm.{k}": v for k, v in layer_norm_init(d).items()})
@@ -480,14 +578,20 @@ def random_vit_state_dict(model: nn.Module, seed: int) -> dict:
     numpy (``jax.random`` cannot be matched): the block linears, the
     pos-embed, the distillation token and the heads N(0, 0.02) clipped at
     +-2 with zero biases, LayerNorms ones and zeros, CLS zeros, the patch
-    conv torch-default U(+-1/sqrt(fan_in))."""
+    conv torch-default U(+-1/sqrt(fan_in)); a DINOv2 ViT's CLS and registers
+    N(0, 1e-6) and its LayerScale gammas ones (``vit_init``)."""
     rng = np.random.default_rng(seed)
     out = {}
+    dinov2 = getattr(model.cfg, "dinov2", False)
     for name, p in model.state_dict().items():
         shape, parts = tuple(p.shape), name.split(".")
         if name.startswith("patch_embed."):
             bound = 1 / math.sqrt(3 * model.cfg.patch_size ** 2)
             a = rng.uniform(-bound, bound, shape)
+        elif dinov2 and name in ("cls_token", "register_tokens"):
+            a = rng.normal(0.0, 1e-6, shape)
+        elif parts[-1] == "gamma":
+            a = np.ones(shape)
         elif name == "cls_token":
             a = np.zeros(shape)
         elif len(parts) > 1 and parts[-2].startswith("norm") or name.startswith("norm."):

@@ -152,8 +152,8 @@ def _check(a, w, bias, epilogue, ln, res) -> int:
     if kw != k or bias.shape[0] != n:
         raise ValueError(f"shapes do not chain: a {tuple(a.shape)}, w "
                          f"{tuple(w.shape)}, bias {tuple(bias.shape)}")
-    if m % 64 or n % 64 or k % 32:
-        raise ValueError(f"need M % 64 == 0, N % 64 == 0, K % 32 == 0, got "
+    if m < 1 or n % 64 or k % 32:
+        raise ValueError(f"need M > 0, N % 64 == 0, K % 32 == 0, got "
                          f"M={m}, N={n}, K={k}")
     if ln is not None:
         if k > MAX_LN_DIM:
@@ -174,10 +174,11 @@ def _check(a, w, bias, epilogue, ln, res) -> int:
 def tc_shape(m: int, n: int, k: int) -> bool:
     """Whether a linear of [m, k] rows by an (n, k) weight is a shape that
     ``gemm_kernel`` takes in all three of ``linear_tc``'s products: the
-    forward [m, k] . [n, k]^T (``_check``: m, n % 64, k % 32), dx = [m, n] .
-    [n, k] (``_check_nn``: m, k % 64, n % 32) and dW = [m, n]^T . [m, k]
-    (``gemm_tn``: all three % 64)."""
-    return m > 0 and m % 64 == 0 and n % 64 == 0 and k % 64 == 0
+    forward [m, k] . [n, k]^T (``_check``: n % 64, k % 32), dx = [m, n] .
+    [n, k] (``_check_nn``: k % 64, n % 32) and dW = [m, n]^T . [m, k]
+    (``gemm_tn``: n, k % 64).  Any m > 0: rows beyond m arrive as zeros and
+    are never stored, and dW's contraction over m ends in zeros."""
+    return m > 0 and n % 64 == 0 and k % 64 == 0
 
 
 def linear_takes(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
@@ -285,8 +286,9 @@ def _check_nn(a, w, epilogue, pre) -> None:
     (m, k), (kw, n) = a.shape, w.shape
     if kw != k:
         raise ValueError(f"shapes do not chain: a {tuple(a.shape)}, w {tuple(w.shape)}")
-    if m % 64 or n % 64 or k % 32:
-        raise ValueError(f"need M % 64 == 0, N % 64 == 0, K % 32 == 0, got M={m}, N={n}, K={k}")
+    if m < 1 or n % 64 or k % 32 or (epilogue == "dgelu" and m % 64):
+        raise ValueError(f"need M > 0 (dgelu: M % 64 == 0), N % 64 == 0, K % 32 == 0, got "
+                         f"M={m}, N={n}, K={k}")
     if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError("a and w must be bfloat16")
     if (pre is None) != (epilogue != "dgelu"):
@@ -363,8 +365,8 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"a must be [M, KA], b [M, NB], got {tuple(a.shape)}, {tuple(b.shape)}")
     (m, ka), nb = a.shape, b.shape[1]
-    if m % 64 or ka % 64 or nb % 64:
-        raise ValueError(f"need M, KA, NB % 64 == 0, got M={m}, KA={ka}, NB={nb}")
+    if m < 1 or ka % 64 or nb % 64:
+        raise ValueError(f"need M > 0, KA, NB % 64 == 0, got M={m}, KA={ka}, NB={nb}")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise ValueError("a and b must be bfloat16")
     if not _on_card([a, b], "gemm_tn"):

@@ -64,6 +64,14 @@ def test_k2_bound_and_phase_6_shapes():
     assert cs.K2_TRAIN_SHAPE[:3] in cs.K2_SHAPES
     assert {n for _, _, n in cs.K2_SHAPES} == {1, 63, 64, 65, 129, 785, 2501}
     assert cs.K2_HEAD_DIMS == (32, 64, 128)
+    # the vitg14reg-train-b8 cell's attention, at its own head dim only
+    assert cs.K2_VITG_SHAPE == (8, 24, 1 + 4 + 37 * 37, 64)
+    assert cs.K2_CASES[-1] == cs.K2_VITG_SHAPE
+    assert len(cs.K2_CASES) == len(cs.K2_SHAPES) * len(cs.K2_HEAD_DIMS) + 1
+    vitg = cs.k2_bound(*cs.K2_VITG_SHAPE)
+    assert vitg["fwd"]["bound_by"] == vitg["bwd"]["bound_by"] == "operations"
+    assert abs(vitg["fwd"]["bound_ms"] / bound["fwd"]["bound_ms"]
+               - 24 * 1374 ** 2 / (6 * 785 ** 2)) <= 1e-9
     mask = cs._canvas_mask(np.random.default_rng(0), 4, 2501)
     assert mask.shape == (4, 2501) and mask[:, 0].all() and not mask.all()
 
@@ -100,8 +108,10 @@ def test_linear_bound_and_phase_3_linear_shapes():
     patch embedding, without dx, moves 116 MB for two products, so bytes
     bind; the f32-bias form alone counts its bias at 4
     bytes.  Phase 3 times every ViT linear, the patch embedding (no dx) and
-    the decoder's K/V, query and FFN products at the cell's rows, each a
-    shape the tensor-core rule takes."""
+    the decoder's K/V, query and FFN products at the cell's rows, then the
+    DINOv2 ViT-g/14-reg cell's qkv, proj, w12, w3, adapter, decoder K/V and
+    query products at B=8's rows (10992, 10952, 160: no multiple of 64),
+    each a shape the tensor-core rule takes."""
     import chip_smoke as cs
     from sod_tpu_torch.ops import gemm as G
 
@@ -120,9 +130,13 @@ def test_linear_bound_and_phase_3_linear_shapes():
     bf = cs.gemm_bound(64, 64, 64, "bias_bf16", False, 2, 0)["bound_ms"]
     assert abs((f32 - bf) - 2 * 64 / 3.35e12 * 1e3) <= 1e-15
     assert [s[0] for s in cs.LINEAR_SHAPES] == ["qkv", "proj", "fc1", "fc2", "patch",
-                                                "dec_kv", "dec_q", "dec_fc1", "dec_fc2"]
+                                                "dec_kv", "dec_q", "dec_fc1", "dec_fc2",
+                                                "g_qkv", "g_proj", "g_w12", "g_w3",
+                                                "g_adapter", "g_dec_kv", "g_dec_q"]
     assert all(G.tc_shape(m, n, k) for _, m, n, k, _ in cs.LINEAR_SHAPES)
-    assert {m for _, m, _, _, _ in cs.LINEAR_SHAPES} == {64 * 785, 64 * 784, 64 * 20}
+    assert {m for _, m, _, _, _ in cs.LINEAR_SHAPES} == {64 * 785, 64 * 784, 64 * 20,
+                                                         8 * 1374, 8 * 1369, 8 * 20}
+    assert {m % 64 for _, m, _, _, _ in cs.LINEAR_SHAPES} == {0, 48, 8, 32}
     assert [s[0] for s in cs.LINEAR_SHAPES if not s[4]] == ["patch"]
 
 
@@ -286,3 +300,19 @@ def test_model_layouts_phase_is_run_and_fails_without_a_card():
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         cs.model_layouts_check()
     assert not torch.distributed.is_initialized()
+
+
+def test_vitg_phase_is_run_and_fails_without_a_card():
+    """Phase 25 (one training step of the vitg14reg-train-b8 cell's model,
+    its linear_tc and K2 launches counted) is part of ``main``, and its
+    count feeds the kernel line's ViT-g linear rows; off the card it fails
+    before it draws the 1.14B weights."""
+    import inspect
+
+    import chip_smoke as cs
+
+    source = inspect.getsource(cs.main)
+    assert "vitg = vitg_train_check()" in source
+    assert 'vitg["tc"]' in source and 'main_linears["forward B=8"]' in source
+    with pytest.raises((RuntimeError, AssertionError)):
+        cs.vitg_train_check()

@@ -172,7 +172,7 @@ def test_gemm_rejects_what_the_kernel_does_not_take(case):
     rng = np.random.default_rng(5)
     kw = _form_inputs(rng, "bias_bf16")
     bad = {
-        "rows": lambda: _bad(kw, a=kw["a"][:96]),                        # M % 64
+        "rows": lambda: _bad(kw, a=kw["a"][:0]),                         # M == 0
         "cols": lambda: _bad(kw, w=kw["w"][:160], bias=kw["bias"][:160]),  # N % 64
         "depth": lambda: _form_inputs(rng, "res_f32", k=48),             # K % 32
         "ln_width": lambda: _form_inputs(rng, "bias_bf16", k=1088),      # LN K > 1024
@@ -243,7 +243,8 @@ def _within_bf16_ulp(got, want):
                                rtol=2.0 ** -7, atol=0)
 
 
-@pytest.mark.parametrize("case", ["2d", "3d", "3d_input_without_grad", "bf16_weight"])
+@pytest.mark.parametrize("case", ["2d", "3d", "3d_input_without_grad", "bf16_weight",
+                                  "row_tail"])
 def test_linear_tc_matches_the_f32_products(case):
     """``linear_tc`` (its products' plain versions on the CPU) against
     ``linear_f32`` under autograd: y, dx, dW and db in the dtypes the f32
@@ -252,7 +253,8 @@ def test_linear_tc_matches_the_f32_products(case):
     from sod_tpu_torch.ops import layers as L
 
     rng = np.random.default_rng(8)
-    shape = {"2d": (128, 64), "bf16_weight": (128, 64)}.get(case, (2, 64, 128))
+    shape = {"2d": (128, 64), "bf16_weight": (128, 64),
+             "row_tail": (3, 37, 128)}.get(case, (2, 64, 128))      # 111 rows
     weight_dtype = BF16 if case == "bf16_weight" else torch.float32
     x, w, b = _linear_inputs(rng, shape, 192, weight_dtype,
                              x_grad=case != "3d_input_without_grad")
@@ -277,10 +279,12 @@ def test_linear_tc_matches_the_f32_products(case):
 
 @pytest.mark.parametrize("m,n,k,want", [
     (1280, 2, 384, False),                            # the objectness classifier
-    (6280, 384, 384, False),                          # B=8 serving rows
-    (784, 384, 384, False),                           # the decoder's K/V of one image
+    (6280, 384, 384, True),                           # B=8 serving rows (6280 % 64 = 8)
+    (784, 384, 384, True),                            # the decoder's K/V of one image
+    (20, 384, 384, True),                             # one image's queries
     (0, 384, 384, False),                             # no rows
     (1280, 384, 48, False),                           # K % 64
+    (10952, 1536, 588, False),                        # ViT-g/14's patch embedding (K 588)
     (50240, 1152, 384, True),                         # the cell's QKV
     (50240, 384, 384, True),                          # proj
     (50240, 1536, 384, True),                         # fc1
@@ -289,18 +293,27 @@ def test_linear_tc_matches_the_f32_products(case):
     (50176, 384, 384, True),                          # the decoder's K and V
     (1280, 384, 384, True),                           # the decoder's queries
     (1280, 1536, 384, True),                          # its FFN
+    (10992, 4608, 1536, True),                        # ViT-g/14-reg at B=8: qkv (10992 % 64 = 48)
+    (10992, 1536, 1536, True),                        # proj
+    (10992, 8192, 1536, True),                        # SwiGLU w12
+    (10992, 1536, 4096, True),                        # w3
+    (10952, 384, 1536, True),                         # the adapter (10952 % 64 = 8)
+    (10952, 384, 384, True),                          # the decoder's K and V
+    (160, 384, 384, True),                            # the decoder's queries at B=8
 ])
 def test_tc_shape_rule(m, n, k, want):
-    """The dispatch rule's shapes as a device-independent predicate."""
+    """The dispatch rule's shapes as a device-independent predicate: N and K
+    multiples of 64, any row count above 0."""
     assert G.tc_shape(m, n, k) is want
 
 
 @pytest.mark.parametrize("case,want", [
-    ("taken", True), ("no_bias", False), ("rows", False), ("n2", False),
+    ("taken", True), ("no_bias", False), ("rows", True), ("n2", False),
     ("strided", False), ("misaligned", False)])
 def test_linear_takes(case, want):
-    """``linear_takes`` on bf16 x: a bias, a shape ``tc_shape`` accepts,
-    and x one contiguous, 16-byte aligned [M, K] matrix."""
+    """``linear_takes`` on bf16 x: a bias, a shape ``tc_shape`` accepts (80
+    rows, no multiple of 64, are one), and x one contiguous, 16-byte aligned
+    [M, K] matrix."""
     x = torch.zeros(2, 64, 64, dtype=BF16)
     w, b = torch.zeros(128, 64), torch.zeros(128)
     if case == "no_bias":
@@ -317,7 +330,7 @@ def test_linear_takes(case, want):
 
 
 @pytest.mark.parametrize("case,counts", [
-    ("taken", (1, 0)), ("n2", (0, 1)), ("rows", (0, 1)), ("no_bias", (0, 1)),
+    ("taken", (1, 0)), ("n2", (0, 1)), ("rows", (1, 0)), ("no_bias", (0, 1)),
     ("strided", (0, 1)), ("f32", (0, 0))])
 def test_linear_counters_and_dispatch(monkeypatch, case, counts):
     """With ``linear`` made to see its input on the card, a call goes

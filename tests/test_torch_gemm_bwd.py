@@ -333,7 +333,7 @@ def test_gemm_nn_rejects_what_the_kernel_does_not_take(case):
     h, w1, b1 = rc["pre"]
     bad = {
         "epilogue": lambda: dict(kw, epilogue="gelu"),
-        "rows": lambda: dict(kw, a=kw["a"][:96]),                        # M % 64
+        "rows": lambda: dict(dg, a=dg["a"][:96], pre=dg["pre"][:96]),    # dgelu: M % 64
         "cols": lambda: dict(kw, w=kw["w"][:, :160]),                    # N % 64
         "depth": lambda: _nn_inputs(rng, "f32", k=48),                   # K % 32
         "chain": lambda: dict(kw, w=kw["w"][:32]),                       # K mismatch
@@ -355,7 +355,7 @@ def test_gemm_nn_rejects_what_the_kernel_does_not_take(case):
 def test_gemm_tn_rejects_what_the_kernel_does_not_take(case):
     rng = np.random.default_rng(18)
     a, b = _t(_bf16_np(rng, 256, 128)), _t(_bf16_np(rng, 256, 64))
-    bad = {"rows_differ": (a, b[:192]), "rows": (a[:96], b[:96]), "ka": (a[:, :96], b),
+    bad = {"rows_differ": (a, b[:192]), "rows": (a[:0], b[:0]), "ka": (a[:, :96], b),
            "nb": (a, b[:, :32]), "dtype": (a.float(), b), "rank": (a[None], b)}[case]
     with pytest.raises(ValueError):
         G.gemm_tn(*bad)

@@ -21,7 +21,7 @@ from sod_tpu_torch.train.optim import build_optimizer
 from sod_tpu_torch.train.step import METRIC_KEYS, make_train_step
 from sod_tpu_torch.utils import profiling
 
-PHASES = {"step", "forward", "criterion", "backward", "optimizer", "grad_sync"}
+PHASES = {"step", "forward", "encoder", "criterion", "backward", "optimizer", "grad_sync"}
 
 
 @pytest.fixture(autouse=True)
@@ -157,7 +157,10 @@ def test_step_records_its_phases(case):
     with profiling.recording():
         step(_batch())
     recs = profiling.records()
-    assert _tree(recs) == [("step", None)] + [(c, "step") for c in children]
+    want = [("step", None)]
+    for c in children:                 # MaskFormer's encoder call opens inside each forward
+        want += [(c, "step")] + ([("encoder", "forward")] if c == "forward" else [])
+    assert _tree(recs) == want
     assert recs[0].counts == {"rows": 4, "micro": accum}
     assert {r.step for r in recs} == {recs[0].id}
     assert {r.name for r in recs} <= PHASES
@@ -202,7 +205,8 @@ def test_step_under_a_data_mesh_records_grad_sync():
     finally:
         torch.distributed.destroy_process_group()
     assert _tree(profiling.records()) == [
-        ("step", None), ("grad_sync", "step"), ("forward", "step"), ("criterion", "step"),
+        ("step", None), ("grad_sync", "step"), ("forward", "step"), ("encoder", "forward"),
+        ("criterion", "step"),
         ("backward", "step"), ("grad_sync", "step"), ("optimizer", "step"),
         ("grad_sync", "optimizer"), ("grad_sync", "optimizer")]
 
@@ -217,7 +221,8 @@ def test_trace_writes_spans_json(tmp_path):
         doc = json.load(f)
     assert (tmp_path / "trace.json").exists()
     spans = doc["spans"]
-    assert [s["name"] for s in spans] == ["step", "forward", "criterion", "backward", "optimizer"]
+    assert [s["name"] for s in spans] == ["step", "forward", "encoder", "criterion", "backward",
+                                          "optimizer"]
     ids = {s["id"] for s in spans}
     for s in spans:
         assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None
