@@ -1534,6 +1534,121 @@ def vitg_train_check():
     return dict(got, ms=ms, peak_gb=peak)
 
 
+# eager and graphed steps of one cell from one state (phase 26)
+GRAPH_STEPS = 6
+GRAPH_CELLS = {"vits8-train-b64": (64, None), "vitg14reg-train-b8": (8, VITG_SIZE)}
+
+
+def _train_model(cfg, sd):
+    """A MaskFormer of ``cfg`` on the card holding ``sd``, built on the meta
+    device first, and its optimizer."""
+    import torch
+
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from
+    from sod_tpu_torch.train.optim import build_optimizer
+
+    with torch.device("meta"):
+        model = MaskFormer(config_from(cfg))
+    model = model.to_empty(device="cuda")
+    model.load_state_dict(sd)
+    return model, build_optimizer(cfg, model.parameters(), n_iters_per_epoch=100)
+
+
+def graphed_step_check():
+    """Phase 26: ``make_train_step`` run eagerly (its graph signature patched
+    to None) and from CUDA graphs, ``GRAPH_STEPS`` steps each from one state
+    on the same distinct batches, at the vits8-train-b64 cell's B=64 / 224 px
+    and the vitg14reg-train-b8 cell's B=8 / 518 px, under torch's
+    deterministic algorithms: every loss and every parameter bit for bit, the
+    same linear_tc and K2 counts, one eager step then replays; host ms (the
+    calls) and card ms (CUDA events) a step over the last GRAPH_STEPS - 2
+    steps, and each run's peak memory.  Returns {cell: {mode: numbers}}."""
+    import dataclasses
+
+    import torch
+
+    from sod_tpu_torch.config import load_config
+    from sod_tpu_torch.models.maskformer import MaskFormer, config_from, random_state_dict
+    from sod_tpu_torch.models.vit import DINOV2_ARCH
+    from sod_tpu_torch.ops import flash_attention as fa
+    from sod_tpu_torch.ops import layers as L
+    from sod_tpu_torch.train import step as step_mod
+
+    live = load_config(CONFIG)
+    out = {}
+    for cell, (b, size) in GRAPH_CELLS.items():
+        cfg = dataclasses.replace(live, batch_size=b)
+        if size is not None:
+            cfg = dataclasses.replace(cfg, arch=DINOV2_ARCH, patch_size=14,
+                                      train_image_size=size, eval_image_size=size)
+        rng = np.random.default_rng(26)
+        batches = [_to_cuda(synthetic_batch(rng, b, cfg.train_image_size, cfg.max_gt_masks))
+                   for _ in range(GRAPH_STEPS)]
+        with torch.device("meta"):
+            sd = random_state_dict(MaskFormer(config_from(cfg)), cfg.seed)
+        runs = {}
+        for mode in ("eager", "graphed"):
+            _release()
+            model, opt = _train_model(cfg, sd)
+            step = step_mod.make_train_step(cfg, model, opt)
+            real = step_mod._graph_signature
+            if mode == "eager":
+                step_mod._graph_signature = lambda *a: None
+            counts0 = (L.tc_linears, fa.fwd_launches, fa.bwd_launches,
+                       step_mod.eager_steps, step_mod.graphed_steps)
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            try:
+                with _deterministic():
+                    losses = []
+                    for i, batch in enumerate(batches):
+                        if i == 2:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            start.record()
+                        losses.append(step(batch)["loss"])
+                    host = (time.perf_counter() - t0) * 1e3
+                    end.record()
+                    torch.cuda.synchronize()
+            finally:
+                step_mod._graph_signature = real
+            n = GRAPH_STEPS - 2
+            counts = tuple(a - b0 for a, b0 in zip(
+                (L.tc_linears, fa.fwd_launches, fa.bwd_launches, step_mod.eager_steps,
+                 step_mod.graphed_steps), counts0))
+            runs[mode] = {"losses": torch.stack(losses).cpu(),
+                          "params": {k: v.detach().cpu() for k, v in model.named_parameters()},
+                          "host_ms": host / n, "card_ms": start.elapsed_time(end) / n,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "counts": counts}
+            del model, opt, step
+        _release()
+        e, g = runs["eager"], runs["graphed"]
+        differ = [k for k in e["params"] if not torch.equal(e["params"][k], g["params"][k])]
+        same_loss = torch.equal(e["losses"], g["losses"])
+        print(f"  {cell}: {GRAPH_STEPS} steps from one state, eager then graphed: losses "
+              f"{[round(float(x), 6) for x in g['losses']]} bit for bit {same_loss}; "
+              f"{len(differ)} of {len(e['params'])} parameters differ; linear_tc, K2 fwd, "
+              f"K2 bwd, eager, graphed counts {e['counts']} / {g['counts']}", flush=True)
+        for mode, r in runs.items():
+            print(f"    {mode}: host {r['host_ms']:.2f} ms, card {r['card_ms']:.2f} ms a step "
+                  f"(deterministic algorithms; last {GRAPH_STEPS - 2} steps), peak "
+                  f"{r['peak_gb']:.2f} GB [{CARD}]", flush=True)
+        if not same_loss or differ:
+            raise AssertionError(f"{cell}: the graphed steps differ from the eager ones "
+                                 f"(losses equal: {same_loss}; parameters {differ[:5]})")
+        if e["counts"][:3] != g["counts"][:3] or e["counts"][3:] != (GRAPH_STEPS, 0) \
+                or g["counts"][3:] != (1, GRAPH_STEPS - 1):
+            raise AssertionError(f"{cell}: counts eager {e['counts']}, graphed {g['counts']}")
+        out[cell] = {mode: {k: r[k] for k in ("host_ms", "card_ms", "peak_gb")}
+                     for mode, r in runs.items()}
+        del runs, e, g, batches, sd
+    phase(26, "train steps from CUDA graphs: " + "; ".join(
+        f"{cell} bit for bit with the eager steps, card {r['eager']['card_ms']:.1f} -> "
+        f"{r['graphed']['card_ms']:.1f} ms a step" for cell, r in out.items()))
+    return out
+
+
 class _PlainFlash:
     """K2's plain versions as the autograd function of the encoder's
     attention, on CUDA tensors (the kernels' twin for phase 7)."""
@@ -1703,7 +1818,9 @@ def profile_steps(step, batch, n: int, step_ms: float, unit: str = "step", watch
             step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # a replayed step's spans also show on the device, as user annotations
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy <= 0:
         print("  profiler: no device time recorded (idle share not measured)")
@@ -5238,6 +5355,7 @@ def main():
         svc.close()
     k2_worst, k2_times = k2_check()
     vitg = vitg_train_check()
+    graphed_step_check()
     train_step_check()
     k2_launches = trainer_check()
     ev = eval_kernels_check()

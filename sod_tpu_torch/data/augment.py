@@ -9,6 +9,7 @@ samples.  The constants are restated here: importing them from
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -314,11 +315,18 @@ def normalize(img: np.ndarray) -> np.ndarray:
     return ((img.astype(np.float32) / 255.0) - mean) / std
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device):
+    """The ImageNet mean and std as f32 tensors on ``device``, uploaded
+    once: a copy from the host inside a step would wait for the card."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def normalize_device(u8: torch.Tensor) -> torch.Tensor:
     """uint8 [..., 3] in 0..255 -> ImageNet-normalized f32, same f32 math
     as ``sod_tpu``: (u8 / 255 - mean) / std."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=u8.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=u8.device)
+    mean, std = _mean_std(u8.device)
     return (u8.float() / 255.0 - mean) / std
 
 

@@ -364,7 +364,10 @@ def vit_apply(vit: VisionTransformer, x: torch.Tensor,
         if cfg.fused_train and token_mask is None:
             tokens = fused_block_train(blk, tokens, cfg)
         elif cfg.remat and torch.is_grad_enabled():
-            tokens = checkpoint(blk, tokens, token_mask, use_reentrant=False)
+            # a block draws no random numbers, so the RNG state is not kept
+            # (reading it would refuse a CUDA-graph capture of the step)
+            tokens = checkpoint(blk, tokens, token_mask, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             tokens = blk(tokens, token_mask)
         if all_layers:

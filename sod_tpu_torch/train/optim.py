@@ -12,8 +12,11 @@ eps=1e-8, weight_decay))`` on torch parameters, with optax's semantics:
   first update.
 
 The update runs as ``torch._foreach_*`` ops over all parameters, on the
-device, with no host synchronisation; the schedule is evaluated on the host
-from the Python step count.
+device, with no host synchronisation.  The schedule and the bias
+corrections are evaluated on the host from the Python step count and
+written into three 0-d f32 tensors on the parameters' device, which the
+update reads: a CUDA graph of the update (``train/step.py``) replays with
+each step's values.
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ class ClippedAdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        dev = self.params[0].device if self.params else None
+        # the learning rate and the bias corrections of the update being made
+        self.lr, self.bc1, self.bc2 = (torch.zeros((), device=dev) for _ in range(3))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -57,14 +63,33 @@ class ClippedAdamW:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
-    @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None,
              grads: Optional[List[torch.Tensor]] = None) -> None:
         """One update from the parameters' ``.grad``, or from ``grads`` (one
         per parameter: a data-parallel layout hands the reduced gradients
         of the tensors it steps on, ``parallel/fsdp.py``); ``grad_norm`` is
         the global norm of the whole gradient if the caller has it (it
-        must, when ``grads`` are shards)."""
+        must, when ``grads`` are shards).  ``advance`` then ``update``."""
+        self.advance()
+        self.update(grad_norm, grads)
+
+    def advance(self) -> None:
+        """Count one update and write its learning rate (the schedule at the
+        count before it) and bias corrections ``1 - b^count``, each as f32,
+        into ``lr``, ``bc1`` and ``bc2``: three fills, no copy from the
+        host."""
+        lr = float(self.schedule(self.count))
+        self.count += 1
+        f32 = torch.float32
+        self.lr.fill_(lr)
+        self.bc1.fill_(float(1 - torch.tensor(self.b1, dtype=f32) ** self.count))
+        self.bc2.fill_(float(1 - torch.tensor(self.b2, dtype=f32) ** self.count))
+
+    @torch.no_grad()
+    def update(self, grad_norm: Optional[torch.Tensor] = None,
+               grads: Optional[List[torch.Tensor]] = None) -> None:
+        """``step``'s arithmetic at the count ``advance`` last wrote: device
+        work alone, which a CUDA graph can hold."""
         grads = self.grads() if grads is None else list(grads)
         g_norm = global_norm(grads) if grad_norm is None else grad_norm
         # optax: where(||g|| < max_norm, g, (g / ||g||) * max_norm)
@@ -79,20 +104,15 @@ class ClippedAdamW:
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1 - b2))
-        lr = float(self.schedule(self.count))
-        self.count += 1
-        f32 = torch.float32
-        bc1 = 1 - torch.tensor(b1, dtype=f32) ** self.count
-        bc2 = 1 - torch.tensor(b2, dtype=f32) ** self.count
-        mu_hat = torch._foreach_div(self.mu, float(bc1))
-        den = torch._foreach_sqrt(torch._foreach_div(self.nu, float(bc2)))
+        mu_hat = torch._foreach_div(self.mu, self.bc1)
+        den = torch._foreach_sqrt(torch._foreach_div(self.nu, self.bc2))
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu_hat, den)
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(self.params,
                                                         self.weight_decay))
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_mul_(upd, self.lr)
+        torch._foreach_sub_(self.params, upd)       # p + u * -lr, to the bit
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": [t.clone() for t in self.mu],

@@ -8,8 +8,9 @@ running statistics of the forward written into its buffers
 (``merge_bn_stats``, after the update as in ``sod_tpu``).  The buffers are
 not parameters: ``ClippedAdamW`` never sees them (``sod_tpu`` freezes them
 with ``param_labels``: no gradient, no weight decay).  ``sod_tpu`` jits the
-whole step; here it runs eagerly on the model's device, and the metrics
-stay there as 0-d tensors until the Trainer fetches them.
+whole step; here it runs on the model's device, eagerly or from CUDA
+graphs (below), and the metrics stay there as 0-d tensors until the
+Trainer fetches them.
 
 With ``use_binary_classifier=False`` the forward has no objectness, so the
 criterion takes its ``objectness is None`` branch and the step trains on
@@ -61,13 +62,30 @@ gradients, the norm, the update and ``merge_bn_stats``) and, under a
 layout, ``grad_sync`` (``gather``, ``reduce_grads``, ``publish`` and the
 metrics' all-reduces).
 
+On a CUDA model, with no layout, no ``apply_fn`` and one micro-batch, the
+step is replayed from CUDA graphs: the first call with a batch's keys,
+shapes, dtypes and device runs eagerly (the kernel libraries, the plans and
+the allocator warm up), the second captures the step and every call with
+that signature then replays it.  The capture ends one graph and begins the
+next at every span's boundary, all in one memory pool, so a replay enters
+and leaves the same spans around the same work; each call copies its batch
+into the graphs' inputs, writes the optimizer's learning rate and bias
+corrections (``ClippedAdamW.advance``), replays, and returns a copy of the
+stacked metrics.  The kernels and their arithmetic are the eager step's.
+Any other call runs eagerly.  ``graphed_steps`` and ``eager_steps`` count
+the two, and the ``step`` span carries ``graphed`` (1 or 0); a replay
+advances the ops' launch and linear counters by what its capture counted.
+
 ``make_eval_step``: the last layer's masks and objectness, for the
 visualizer hooks.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional
+import gc
+import sys
+import warnings
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +98,7 @@ from sod_tpu_torch.models.resnet import merge_bn_stats
 from sod_tpu_torch.parallel.mesh import (all_gather_into, batch_over, batch_sharding, data_group,
                                          data_size)
 from sod_tpu_torch.train.optim import ClippedAdamW, global_norm
+from sod_tpu_torch.utils import profiling
 from sod_tpu_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "dice_loss", "ranking_loss", "classification_loss",
@@ -87,6 +106,109 @@ METRIC_KEYS = ("loss", "dice_loss", "ranking_loss", "classification_loss",
 
 
 _DIAG = ("avg_dice_loss", "avg_ranking_loss", "avg_classification_loss", "avg_iou")
+
+graphed_steps = 0              # steps replayed from CUDA graphs
+eager_steps = 0                # steps run eagerly
+
+# the ops' host counters that a step advances
+_COUNTERS = {"sod_tpu_torch.ops.layers": ("tc_linears", "f32_linears"),
+             "sod_tpu_torch.ops.gemm": ("launches", "nn_launches", "tn_launches",
+                                        "ln_bwd_launches"),
+             "sod_tpu_torch.ops.flash_attention": ("fwd_launches", "bwd_launches"),
+             "sod_tpu_torch.ops.fused_attn": ("launches", "train_fwd_launches",
+                                              "train_bwd_launches"),
+             "sod_tpu_torch.ops.fused_mlp": ("launches", "save_launches", "bwd_launches")}
+
+
+def _counts() -> Dict[Tuple[str, str], int]:
+    return {(m, n): getattr(sys.modules[m], n) for m, names in _COUNTERS.items()
+            if m in sys.modules for n in names}
+
+
+def _set_counts(counts: Dict[Tuple[str, str], int]) -> None:
+    for (m, n), v in counts.items():
+        setattr(sys.modules[m], n, v)
+
+
+def _graph_signature(model: MaskFormer, batch: Dict[str, torch.Tensor]) -> Optional[tuple]:
+    """What a captured step holds fixed: each input's key, shape, dtype and
+    device; None, the eager step, for a model off the card or a batch that
+    holds anything but tensors."""
+    if not (next(model.parameters()).is_cuda
+            and all(isinstance(v, torch.Tensor) for v in batch.values())):
+        return None
+    return tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items()))
+
+
+class _Graphed:
+    """``body(inputs)`` captured as CUDA graphs in one pool, a graph between
+    each two span boundaries: ``items`` holds the graphs in order and, between
+    them, ``(name, counts)`` where a span opens and None where one closes.
+    ``inputs`` is the graphs' copy of the batch, ``output`` what ``body``
+    returned, ``grads`` the gradients the captured backward writes,
+    ``counted`` what ``body`` added to the ops' counters (which the capture
+    leaves as they were)."""
+
+    def __init__(self, signature: tuple, body: Callable, batch: Dict[str, torch.Tensor],
+                 params: List[torch.Tensor]):
+        self.signature = signature
+        before = _counts()
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.items: list = []
+        pool = torch.cuda.graph_pool_handle()
+        graph = None
+
+        def begin():
+            nonlocal graph
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=pool)
+
+        def end():
+            with warnings.catch_warnings():      # two spans that meet leave one empty
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                graph.capture_end()
+            self.items.append(graph)
+
+        def cut(name, counts):
+            end()
+            self.items.append(None if name is None else (name, counts))
+            begin()
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            begin()
+            try:
+                with profiling.cut_at_spans(cut):
+                    self.output = body(self.inputs)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            end()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.grads = [p.grad for p in params]
+        after = _counts()
+        self.counted = {k: v - before.get(k, 0) for k, v in after.items()}
+        _set_counts({k: before.get(k, 0) for k in after})
+
+    def replay(self, batch: Dict[str, torch.Tensor], params: List[torch.Tensor]) -> torch.Tensor:
+        """The step on ``batch``: a copy of ``output``."""
+        for k, t in self.inputs.items():
+            t.copy_(batch[k])
+        if any(p.grad is not g for p, g in zip(params, self.grads)):
+            for p, g in zip(params, self.grads):     # an eager step came between
+                p.grad = g
+        opened = []
+        for item in self.items:
+            if item is None:
+                opened.pop().__exit__(None, None, None)
+            elif isinstance(item, tuple):
+                opened.append(span(item[0], **item[1]))
+                opened[-1].__enter__()
+            else:
+                item.replay()
+        return self.output.clone()
 
 
 def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
@@ -248,11 +370,48 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in layout.params]
 
-    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        with span("step", rows=batch["image"].shape[0], micro=accum_steps):
-            return one_step(batch)
+    graph: Optional[_Graphed] = None
+    eager_signature = None          # of the last eager call
 
-    def one_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        global graphed_steps, eager_steps
+        nonlocal graph, eager_signature
+        sig = (_graph_signature(model, batch)
+               if layout is None and apply_fn is None and accum_steps == 1 else None)
+        if sig is not None and graph is None and sig == eager_signature:
+            graph = capture(batch, sig)
+        rows = batch["image"].shape[0]
+        if sig is not None and graph is not None and sig == graph.signature:
+            with span("step", rows=rows, micro=accum_steps, graphed=1):
+                optimizer.advance()
+                out = graph.replay(batch, optimizer.params)
+            graphed_steps += 1
+            _set_counts({k: v + graph.counted.get(k, 0) for k, v in _counts().items()})
+            return dict(zip(METRIC_KEYS, out.unbind()))
+        eager_signature = sig
+        with span("step", rows=rows, micro=accum_steps, graphed=0):
+            out = one_step(batch)
+        eager_steps += 1
+        return out
+
+    def capture(batch, sig) -> _Graphed:
+        """The step captured on ``batch``'s signature; the optimizer's count
+        stays as it was."""
+        with torch.cuda.device(optimizer.params[0].device):
+            optimizer.zero_grad()           # the captured backward writes them fresh
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()        # the eager steps' blocks, before the graphs' pool
+            return _Graphed(sig, stacked_step, batch, optimizer.params)
+
+    def stacked_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        out = one_step(batch, captured=True)
+        return torch.stack([out[k] for k in METRIC_KEYS])
+
+    def one_step(batch: Dict[str, torch.Tensor], captured: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        """The step; ``captured``: the optimizer's update without its count,
+        which the replay advances."""
         if layout is None:
             optimizer.zero_grad()
         else:
@@ -284,7 +443,10 @@ def make_train_step(cfg, model: MaskFormer, optimizer: ClippedAdamW,
                 torch._foreach_div_(param_grads(), accum_steps)
             if layout is None:
                 grad_norm = global_norm(optimizer.grads())
-                optimizer.step(grad_norm)
+                if captured:
+                    optimizer.update(grad_norm)
+                else:
+                    optimizer.step(grad_norm)
             else:
                 with span("grad_sync"):
                     grads = layout.reduce_grads()

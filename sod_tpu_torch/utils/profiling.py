@@ -18,6 +18,10 @@ current stream at enter and at exit.  It also enters
 device milliseconds are read from the events only when asked for
 (``SpanRecord.device_ms``), after the work: never inside a step.
 ``records()`` returns what was recorded; ``trace()`` writes it out.
+
+Inside ``cut_at_spans(fn)`` the thread's spans record nothing: each calls
+``fn`` as it opens and as it closes, where the train step's CUDA-graph
+capture ends one graph and begins the next (``train/step.py``).
 """
 from __future__ import annotations
 
@@ -86,15 +90,50 @@ _lock = threading.Lock()
 _records: List[SpanRecord] = []
 _ids = itertools.count()
 _local = threading.local()
+_cut = None                  # (thread id, fn) inside cut_at_spans
 
 
 def span(name: str, **counts):
     """A context marking one phase of the program, recorded while a torch
     profiler session runs or inside ``recording()``; ``counts`` are kept
     with it (``rows=64``)."""
+    if _cut is not None and _cut[0] == threading.get_ident():
+        return _Cut(name, counts, _cut[1])
     if not (_autograd_profiler._is_profiler_enabled or _recording):
         return _OFF
     return _Span(name, counts)
+
+
+class _Cut:
+    """The context ``span`` returns inside ``cut_at_spans``."""
+
+    __slots__ = ("name", "counts", "fn")
+
+    def __init__(self, name: str, counts: Dict[str, int], fn):
+        self.name, self.counts, self.fn = name, counts, fn
+
+    def __enter__(self):
+        self.fn(self.name, self.counts)
+        return None
+
+    def __exit__(self, *exc):
+        self.fn(None, None)
+        return False
+
+
+@contextlib.contextmanager
+def cut_at_spans(fn) -> Iterator[None]:
+    """On this thread, inside this block, every span records nothing and
+    calls ``fn(name, counts)`` as it opens and ``fn(None, None)`` as it
+    closes."""
+    global _cut
+    if _cut is not None:
+        raise RuntimeError("cut_at_spans does not nest")
+    _cut = (threading.get_ident(), fn)
+    try:
+        yield
+    finally:
+        _cut = None
 
 
 class _Span:

@@ -316,3 +316,20 @@ def test_vitg_phase_is_run_and_fails_without_a_card():
     assert 'vitg["tc"]' in source and 'main_linears["forward B=8"]' in source
     with pytest.raises((RuntimeError, AssertionError)):
         cs.vitg_train_check()
+
+
+def test_graphed_phase_is_run_and_fails_without_a_card():
+    """Phase 26 (eager and CUDA-graph steps of both train cells' models from
+    one state, bit for bit) is part of ``main`` and runs both cells' batch
+    sizes; off the card it fails at its first upload, before it draws any
+    weights."""
+    import inspect
+
+    import chip_smoke as cs
+
+    assert "graphed_step_check()" in inspect.getsource(cs.main)
+    assert {cell: b for cell, (b, _) in cs.GRAPH_CELLS.items()} == {
+        "vits8-train-b64": 64, "vitg14reg-train-b8": 8}
+    assert cs.GRAPH_STEPS >= 3
+    with pytest.raises((RuntimeError, AssertionError)):
+        cs.graphed_step_check()

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from sod_tpu import native as jnative
@@ -81,6 +82,24 @@ def test_rle_round_trip_and_equality():
     one = rle.encode(np.eye(5, dtype=np.uint8))
     assert rle.area(one) == jax_rle.area(one) == 5
     assert rle.iou(one, one) == 1.0
+
+
+def test_normalize_device_keeps_its_values():
+    """``normalize_device`` reads its mean and std from tensors made once per
+    device: the values are those of the tensors it built on every call, and
+    ``normalize``'s (both packages') on the host."""
+    u8 = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 5, 7, 3),
+                                                           dtype=np.uint8))
+    mean = torch.tensor(taug.IMAGENET_MEAN, dtype=torch.float32)
+    std = torch.tensor(taug.IMAGENET_STD, dtype=torch.float32)
+    want = (u8.float() / 255.0 - mean) / std
+    for _ in range(2):
+        assert torch.equal(taug.normalize_device(u8), want)
+    np.testing.assert_array_equal(want.numpy(), taug.normalize(u8.numpy()))
+    np.testing.assert_array_equal(want.numpy(), jaug.normalize(u8.numpy()))
+    cached = taug._mean_std(u8.device)
+    assert cached is taug._mean_std(u8.device)
+    assert torch.equal(cached[0], mean) and torch.equal(cached[1], std)
 
 
 def test_augmentations_are_byte_equal():

@@ -140,6 +140,33 @@ def test_two_threads_keep_separate_stacks():
     assert recs["outer_x"].parent is None and recs["outer_y"].parent is None
 
 
+def test_cut_at_spans_calls_instead_of_recording():
+    """Inside ``cut_at_spans`` the thread's spans call the cutter as they open
+    and close and record nothing; another thread's spans record as ever."""
+    calls = []
+
+    def other():
+        with profiling.span("elsewhere"):
+            pass
+
+    with profiling.recording(), profiling.cut_at_spans(lambda *a: calls.append(a)):
+        with profiling.span("step", rows=2, graphed=1):
+            with profiling.span("forward"):
+                t = threading.Thread(target=other)
+                t.start()
+                t.join(timeout=60)
+        with pytest.raises(RuntimeError, match="nest"):
+            with profiling.cut_at_spans(lambda *a: None):
+                pass
+    assert calls == [("step", {"rows": 2, "graphed": 1}), ("forward", {}), (None, None),
+                     (None, None)]
+    assert [r.name for r in profiling.records()] == ["elsewhere"]
+    with profiling.recording():
+        with profiling.span("after"):
+            pass
+    assert [r.name for r in profiling.records()] == ["elsewhere", "after"]
+
+
 # ------------------------------------------------------------ the train step
 
 STEP_TREES = {
@@ -161,9 +188,31 @@ def test_step_records_its_phases(case):
     for c in children:                 # MaskFormer's encoder call opens inside each forward
         want += [(c, "step")] + ([("encoder", "forward")] if c == "forward" else [])
     assert _tree(recs) == want
-    assert recs[0].counts == {"rows": 4, "micro": accum}
+    assert recs[0].counts == {"rows": 4, "micro": accum, "graphed": 0}
     assert {r.step for r in recs} == {recs[0].id}
     assert {r.name for r in recs} <= PHASES
+
+
+def test_cpu_steps_run_eagerly_with_metrics_of_their_own():
+    """On the CPU every call is an eager step: ``eager_steps`` counts it and
+    ``graphed_steps`` stays; each call records the step's tree with
+    ``graphed`` 0 and returns 0-d f32 metric tensors no other call shares."""
+    from sod_tpu_torch.train import step as step_mod
+
+    _, _, step = _step()
+    before = step_mod.graphed_steps, step_mod.eager_steps
+    with profiling.recording():
+        outs = [step(_batch()) for _ in range(2)]
+    assert (step_mod.graphed_steps, step_mod.eager_steps) == (before[0], before[1] + 2)
+    recs = profiling.records()
+    one = [("step", None), ("forward", "step"), ("encoder", "forward"), ("criterion", "step"),
+           ("backward", "step"), ("optimizer", "step")]
+    assert _tree(recs) == one * 2
+    assert [r.counts for r in recs if r.name == "step"] == [
+        {"rows": 4, "micro": 1, "graphed": 0}] * 2
+    for k in METRIC_KEYS:
+        assert all(m[k].dim() == 0 and m[k].dtype == torch.float32 for m in outs), k
+        assert len({m[k].data_ptr() for m in outs}) == 2, k
 
 
 @pytest.mark.parametrize("case", sorted(STEP_TREES))
@@ -227,6 +276,6 @@ def test_trace_writes_spans_json(tmp_path):
     for s in spans:
         assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None
         assert s["step"] == spans[0]["id"] and (s["parent"] is None or s["parent"] in ids)
-    assert spans[0]["counts"] == {"rows": 4, "micro": 1}
+    assert spans[0]["counts"] == {"rows": 4, "micro": 1, "graphed": 0}
     assert not torch.autograd.profiler._is_profiler_enabled
     assert profiling.span("x") is profiling.span("y")
